@@ -1,5 +1,5 @@
 """Keyframe-insert frame cost itemization + online-BA knee sweep
-(VERDICT r3 item 7: "what does a keyframe frame cost, and where is the
+("what does a keyframe frame cost, and where is the
 accuracy/cost knee of the in-graph windowed BA?").
 
 Part 1 — itemize one frame's cost by forcing the per-frame policy:
@@ -34,17 +34,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> None:
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
 
-    from benchmarks.bench_suite import _sync_tunnel, _timeit_sync
-    from ptzjax import synth
+    from benchmarks.bench_suite import _timeit
+    from ptzjax import compile_cache, synth
     from ptzjax.config import SLAMConfig
     from ptzjax.features import synth_features
     from ptzjax.slam import PTZSlam
 
+    compile_cache.setup()
     base = SLAMConfig(
         max_rays=128, max_keypoints=256, max_map_rays=2048, max_keyframes=32,
         kf_desc_dim=128, sigma_obs=0.7,
@@ -74,14 +73,13 @@ def main() -> None:
     def time_cfg(slam, state, reps=3):
         ts = []
         for _ in range(reps):
-            ts.append(_timeit_sync(
+            ts.append(_timeit(
                 lambda: slam.run_segment(
                     state, xy[1:], desc[1:], valid[1:]
                 )[0].ekf.cam
             ))
         return sorted(ts)[1] / (frames - 1)
 
-    _sync_tunnel()
 
     # ---- part 1: itemized frame cost --------------------------------------
     rows = {}

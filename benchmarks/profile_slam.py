@@ -1,7 +1,6 @@
-"""Sub-stage breakdown of the per-frame SLAM step (VERDICT r3 item 1).
+"""Sub-stage breakdown of the per-frame SLAM step.
 
-profile_pixels.py splits the from-pixels loop into frontend vs slam_step;
-this tool splits the slam_step itself: predict, association (project +
+This tool splits the slam_step into: predict, association (project +
 gated match + consensus + scatter), joint EKF update, lifecycle (retire /
 descriptor refresh / ray store writeback / cull), map growth, and the
 cond-dispatch overhead of `_frame_step` (reloc branch + keyframe branch)
@@ -35,21 +34,20 @@ def main() -> None:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
 
-    from benchmarks.bench_suite import _sync_tunnel, _timeit_sync
+    from benchmarks.bench_suite import _timeit
     from ptzjax import ekf as ekflib
     from ptzjax import mapstore
     from ptzjax import match as matchlib
-    from ptzjax import synth
+    from ptzjax import compile_cache, synth
     from ptzjax.config import SLAMConfig
     from ptzjax.frontend import extract_features
     from ptzjax.geometry import Intrinsics, in_view_mask, project_rays
     from ptzjax.slam import PTZSlam, _frame_step, _grow_map, _track_frame
 
+    compile_cache.setup()
     w, h = 1280, 720
     n_rays, n_kp = args.caps
     cfg = SLAMConfig(
@@ -58,7 +56,6 @@ def main() -> None:
         descriptor_f_ref=2000.0,
     )
     intr = Intrinsics.create(w / 2.0, h / 2.0)
-    use_pallas = jax.default_backend() == "tpu"
 
     pano = synth.make_panorama(seed=0)
     cams = synth.make_trajectory(
@@ -73,14 +70,14 @@ def main() -> None:
 
     slam = PTZSlam(cfg, intr)
     f0 = extract_features(
-        imgs[0], cfg, use_pallas=use_pallas, focal=jnp.asarray(cams[0][2])
+        imgs[0], cfg, focal=jnp.asarray(cams[0][2])
     )
     state0 = slam.init(*f0, cams[0])
 
     feats = jax.jit(
         lambda xs: jax.lax.map(
             lambda im: extract_features(
-                im, cfg, use_pallas=use_pallas, focal=jnp.asarray(2000.0)
+                im, cfg, focal=jnp.asarray(2000.0)
             ),
             xs,
         )
@@ -116,15 +113,14 @@ def main() -> None:
     )(state, xy_all, desc_all, valid_all)
     jax.block_until_ready((obs_all, mask_all))
 
-    _sync_tunnel()
 
     def slope_ms(make, n_small=8, n_big=64, retries=2):
         t_start = time.perf_counter()
         for _ in range(retries + 1):
             f_s, a_s = make(n_small)
             f_b, a_b = make(n_big)
-            t_s = _timeit_sync(f_s, *a_s)
-            t_b = _timeit_sync(f_b, *a_b)
+            t_s = _timeit(f_s, *a_s)
+            t_b = _timeit(f_b, *a_b)
             slope = t_b - t_s
             if slope > 0:
                 print(

@@ -1,5 +1,5 @@
 """ASan/UBSan harness for the native relocalization forest (SURVEY.md §7
-sanitizers row; VERDICT r2 item 9).
+sanitizers row).
 
 Drives the C API of cpp/reloc_forest directly through ctypes WITHOUT
 importing jax (jaxlib's nanobind throws C++ exceptions that trip ASan's

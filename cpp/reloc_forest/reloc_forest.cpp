@@ -19,7 +19,7 @@
 //  - online training: samples accumulate per add_keyframe; trees rebuild
 //    lazily once the sample count outgrows the last build by 25% (amortized
 //    O(N log N) — rebuilds are milliseconds at SLAM map scales);
-//  - ASYNC training (rf_set_async / VERDICT r3 item 6): rebuilds run on a
+//  - ASYNC training (rf_set_async): rebuilds run on a
 //    background std::thread against a SNAPSHOT of the sample arrays and
 //    swap in under a mutex, so the SLAM host loop never stalls at keyframe
 //    time; queries keep serving the previous trees while a build is in

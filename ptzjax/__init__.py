@@ -1,6 +1,6 @@
-"""ptzjax — TPU-native pan-tilt-zoom SLAM engine.
+"""ptzjax — pan-tilt-zoom SLAM in JAX, on one GPU.
 
-A from-scratch JAX/Pallas re-architecture of the capabilities of
+A from-scratch JAX re-architecture of the capabilities of
 lulufa390/Pan-tilt-zoom-SLAM (BMVC 2019, arXiv:1907.08816). See SURVEY.md for
 the structural analysis and BASELINE.md for targets.
 """

@@ -1,7 +1,7 @@
 """Bundle adjustment: Levenberg–Marquardt with the ray-landmark Schur
 complement (SURVEY.md §8.4).
 
-TPU-native replacement for the reference's ``slam_system/bundle_adjustment.py``
+An on-device replacement for the reference's ``slam_system/bundle_adjustment.py``
 (scipy ``least_squares(method='trf')`` with a lil_matrix sparsity pattern —
 SURVEY.md §2 layer 7, §4.3). Instead of a general sparse solver, we exploit
 the problem's exact structure:
@@ -9,7 +9,7 @@ the problem's exact structure:
 - cameras are 3-vectors (pan, tilt, focal), rays are 2-vectors;
 - J splits into camera blocks A (2x3) and ray blocks B (2x2);
 - the normal equations reduce by eliminating rays: per-ray 2x2 inverses (free
-  on the VPU) and a small dense (3K x 3K) reduced camera system solved by
+  elementwise) and a small dense (3K x 3K) reduced camera system solved by
   Cholesky.
 
 Data layout is **ray-major**: a padded (M, C) table of observations where M is
@@ -20,8 +20,8 @@ camera system, solve replicated, scatter per-ray updates locally.
 
 Parameter scaling: focal length enters the parameter vector as f * focal_scale
 (default 1e-3) so all parameters are O(1) in fp32 (SURVEY.md §10 hard parts).
-All reductions run at Precision.HIGHEST (TPU bf16 default is not enough for
-normal equations).
+All reductions run at Precision.HIGHEST, full fp32: the default on the H100
+is TF32 (10-bit mantissa), which is not enough for normal equations.
 """
 
 from __future__ import annotations
@@ -110,8 +110,8 @@ def compute_cost(
 def _cam_onehot(obs_cam: jax.Array, num_cams: int, dtype=jnp.float32):
     """(M, C) int camera ids -> (M, C, K) one-hot selector.
 
-    Turns every "segment-sum by camera id" into a dense matmul: scatters
-    serialize on TPU, while the one-hot contraction rides the MXU. Padding
+    Turns every "segment-sum by camera id" into a dense matmul instead of a
+    scatter (whether that still pays on the GPU is ROADMAP D2). Padding
     observations carry weight 0 in (r, A, B), so their (arbitrary) cam-0
     one-hot rows contribute nothing.
     """
@@ -136,7 +136,7 @@ def normal_terms(
     a = _scale_jac(a, focal_scale)
 
     # camera system: A^T A and A^T r reduced by camera id via one-hot matmul
-    # (MXU) instead of segment_sum (serializing scatter on TPU)
+    # instead of segment_sum
     e = _cam_onehot(prob.obs_cam, k, a.dtype)                    # (M,C,K)
     ata = jnp.einsum("mcab,mcad->mcbd", a, a, precision=_HI)     # (M,C,3,3)
     atr = jnp.einsum("mcab,mca->mcb", a, r, precision=_HI)       # (M,C,3)
@@ -178,7 +178,7 @@ def schur_local(v, g_r, w_blk, obs_cam, num_cams, lam):
     The camera-pair correction W V^-1 W^T is assembled WITHOUT materializing
     the (M, C, C, 3, 3) pair tensor or a k*k segment_sum: project Y and W
     onto camera columns with the one-hot selector (two thin matmuls), then
-    one (K*3, M*2) x (M*2, K*3) contraction — all MXU work, no scatters.
+    one (K*3, M*2) x (M*2, K*3) contraction — all matmuls, no scatters.
 
     Returns (s_corr, rhs_corr, v_inv); v_inv is reused by back_substitute.
     """
@@ -237,12 +237,11 @@ def back_substitute(v_inv, g_r, w_blk, obs_cam, dc):
 
 # --- fast path ---------------------------------------------------------------
 #
-# The block-tensor formulation above is the readable spec, but its tiny
-# trailing dims ((M,C,3,3), (M,C,3,2)) compile to pathological TPU layouts
-# (T(4,128)-tiled "convolutions" — profiled at ~275 us per einsum per LM
-# iteration on v5e). The fast path used by ``run``/``lm_iteration`` computes
-# the SAME math component-wise over flat (C, M) / (N,) arrays (perfectly
-# lane-tiled) and reduces with a handful of genuine MXU matmuls.
+# The block-tensor formulation above is the readable spec, with tiny
+# trailing dims ((M,C,3,3), (M,C,3,2)). The fast path used by
+# ``run``/``lm_iteration`` computes the SAME math component-wise over flat
+# (C, M) / (N,) arrays and reduces with a handful of plain matmuls. Which of
+# the two the H100 favours is unmeasured (ROADMAP D3).
 #
 # Structure exploited (SURVEY.md §8.2): B = -A[:, :2] (the ray Jacobian is
 # the negated pan/tilt camera columns), so with q_ij = sum_r a_ri * a_rj
@@ -278,7 +277,7 @@ def precompute(prob: BAProblem) -> BAPrecomp:
 
     Memory note: ``e_flat`` is a dense (M*C, K) fp32 one-hot — O(M*C*K).
     At the online/benchmark sizes (M<=8192, C<=8, K<=64) that is <=16 MB
-    and buys scatter-free MXU segment sums; for very large OFFLINE problems
+    and buys scatter-free segment sums; for very large OFFLINE problems
     (say M*C*K*4 bytes beyond a few GB) shard M over the mesh
     (``dist.run_sharded`` divides M per device, shrinking e_flat
     proportionally) before reaching for a segment-sum rewrite.
@@ -395,7 +394,7 @@ def _fast_terms(cams, rays, lam, prob: BAProblem, pre: BAPrecomp, intr, fs):
         y.append(w_col0[a] * i01[None, :] + w_col1[a] * i11[None, :])
 
     # project Y and W onto camera columns: gy/gw (6, M, K); the explicit
-    # C-term sum fuses into one VPU kernel (C is 6-8, static)
+    # C-term sum fuses into one elementwise kernel (C is 6-8, static)
     e3 = pre.e_flat.reshape(c, m, k)
     wl = [w_col0[0], w_col1[0], w_col0[1], w_col1[1], w_col0[2], w_col1[2]]
     ys = jnp.stack(y)                                            # (6, C, M)

@@ -3,7 +3,7 @@
 The reference repo keeps its earlier homography-EKF tracker under
 ``deprecated/`` (SURVEY.md §2 layer 8, §3), and the paper's headline claim
 is that keyframes + BA markedly reduce drift vs that pure frame-to-frame
-EKF (SURVEY.md §9). This module provides the TPU-native equivalent so the
+EKF (SURVEY.md §9). This module provides the on-device equivalent so the
 eval harness can reproduce the comparison: a map-free visual-odometry
 tracker whose per-frame measurement is the relative pose between
 consecutive frames.

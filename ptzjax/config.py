@@ -40,7 +40,7 @@ class SLAMConfig:
     ransac_iters: int = 128
     ransac_inlier_px: float = 3.0
 
-    # --- association constants (VERDICT r3 item 4: configurable, probed
+    # --- association constants (configurable, probed
     # at sigma_obs = 1..3 px in tests/test_outliers.py) ---
     track_ratio: float = 0.95         # gated re-match ratio on the frame path
                                       # (looser than ratio_test: the pixel
@@ -49,7 +49,7 @@ class SLAMConfig:
                                       # tracking matches: rejects spatially
                                       # coherent wrong-motion groups (moving
                                       # players) that per-slot gates admit
-                                      # one by one (VERDICT r3 item 3)
+                                      # one by one
     track_consensus_px: float = -1.0  # consensus inlier radius; -1 = AUTO
                                       # (3 * sigma_obs + 5 px)
     kf_ratio: float = 0.95            # keyframe association re-match ratio
@@ -86,8 +86,8 @@ class SLAMConfig:
                                       # wrong-motion evidence (a mover), unlike
                                       # mere absence (occlusion), so it burns
                                       # the missed budget max_missed/max_rejected
-                                      # times faster (VERDICT r3 item 3 —
-                                      # mover slots must not crowd out statics)
+                                      # times faster: mover slots must not
+                                      # crowd out statics
 
     # --- keyframes / map ---
     max_keyframes: int = 64
@@ -187,7 +187,7 @@ class SLAMConfig:
             d["mesh_shape"] = tuple(d["mesh_shape"])
         # unknown keys (e.g. fields retired between versions, like the old
         # nms_cell) get an actionable warning instead of a bare TypeError
-        # from the dataclass constructor (ADVICE r3)
+        # from the dataclass constructor
         known = {f.name for f in dataclasses.fields(SLAMConfig)}
         unknown = sorted(set(d) - known)
         if unknown:

@@ -9,13 +9,13 @@ device mesh:
   corrections locally (``ba.schur_local``);
 - ONE psum all-reduces the (3K,3K) reduced camera system + rhs (+ the cost
   scalar) over the mesh axis — the only collective on the critical path,
-  riding ICI within a slice and DCN across hosts;
+  over NVLink between the GPUs of one host and the network across hosts;
 - the small camera solve runs replicated; per-ray back-substitution is
   shard-local.
 
-Multi-host: call ``jax.distributed.initialize()`` before ``make_mesh()``;
+Multi-host: call ``initialize_multihost`` before ``make_mesh()``;
 ``jax.devices()`` then spans all hosts and the same code runs unchanged
-(mesh axis laid out ICI-major by default device order).
+(the mesh axis follows the default device order, host-major).
 
 Shard-count invariance is tested on a virtual 8-device CPU mesh
 (SURVEY.md §6 item 5).
@@ -35,13 +35,7 @@ from ptzjax.ba import BAProblem, BAResult
 from ptzjax.config import SLAMConfig
 from ptzjax.geometry import Intrinsics
 
-try:  # jax >= 0.6 moved shard_map out of experimental
-    from jax import shard_map as _shard_map_mod  # type: ignore
-
-    shard_map = _shard_map_mod
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
-
+from jax import shard_map
 
 AXIS = "obs"
 HOST_AXIS = "host"
@@ -56,8 +50,8 @@ def initialize_multihost(
     """Multi-host entry point (SURVEY.md §5): call ONCE per process before
     any mesh construction; afterwards ``jax.devices()`` spans all hosts and
     ``make_mesh``/``make_mesh_2d`` lay the global device set out unchanged.
-    Arguments default to the cluster-provided environment (TPU pods
-    auto-discover; GPU/CPU clusters pass them explicitly)."""
+    On GPU and CPU clusters pass all three arguments: nothing discovers the
+    coordinator."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -79,11 +73,12 @@ def make_mesh_2d(
     chips_per_host: int | None = None,
     devices=None,
 ) -> Mesh:
-    """2-axis ("host", "chip") mesh: the outer axis crosses DCN, the inner
-    axis rides ICI (SURVEY.md §5). jax.devices() orders devices host-major,
-    so the natural reshape puts each row of the mesh on one host — the BA
-    psum then reduces hierarchically (ICI within a host first, one small
-    (3K,3K)+K*3-float message across DCN).
+    """2-axis ("host", "chip") mesh for several hosts: the outer axis
+    crosses the network between hosts, the inner axis the NVLink fabric
+    within one (SURVEY.md §5). jax.devices() orders devices host-major, so
+    the natural reshape puts each row of the mesh on one host — the BA psum
+    can then reduce within a host first and send one small
+    (3K,3K)+K*3-float message between hosts.
     """
     if devices is None:
         devices = jax.devices()
@@ -139,12 +134,11 @@ def extract_features_sharded(
     mesh: Mesh,
     masks=None,
     focals=None,
-    use_pallas: bool = False,
 ):
     """Offline multi-device feature extraction: frames data-parallel over
     the mesh (SURVEY.md §3 "Batched/sharded Pallas feature kernels ...
     per-chip data parallel"). Each device runs the fused detect+describe
-    pipeline (``frontend.extract_features`` — Pallas detector on TPU) over
+    pipeline (``frontend.extract_features``) over
     its shard of the (T, H, W) frame stack via ``lax.map``; there is no
     cross-frame dependence, so the only communication is the initial
     scatter. Results are shard-count invariant (tested on the virtual CPU
@@ -156,7 +150,6 @@ def extract_features_sharded(
       masks: optional (T, H, W) bool detection masks.
       focals: optional (T,) per-frame focal estimates (zoom-normalized
         descriptors; e.g. annotation priors in offline mode).
-      use_pallas: fused TPU detector kernel (False on CPU meshes).
 
     Returns:
       (xy (T, K, 2), desc (T, K, D), valid (T, K)), sharded over frames.
@@ -180,9 +173,7 @@ def extract_features_sharded(
             )
 
     def one(im, mask, focal):
-        return extract_features(
-            im, cfg, mask=mask, use_pallas=use_pallas, focal=focal
-        )
+        return extract_features(im, cfg, mask=mask, focal=focal)
 
     def local(ims, msks, fs):
         if masks is None and focals is None:
@@ -225,8 +216,7 @@ def run_sharded(
     """Distributed LM/Schur BA over ray shards. Same math as ``ba.run`` —
     the single-device path is the num_shards=1 special case, and results are
     shard-count invariant (tested). Accepts a 1-axis ("obs") or 2-axis
-    ("host", "chip") mesh: the psum reduces over every mesh axis, which XLA
-    lowers hierarchically (ICI within the host row, DCN across rows)."""
+    ("host", "chip") mesh: the psum reduces over every mesh axis."""
     num = mesh.devices.size
     axes = _ray_axes(mesh)
     prob = pad_problem_for_mesh(prob, num)

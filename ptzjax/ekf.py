@@ -1,9 +1,9 @@
 """MonoSLAM-style EKF over the PTZ camera with joint ray landmarks.
 
-TPU-native redesign of the reference's per-frame tracking filter (reference:
-``slam_system/ptz_slam.py`` EKF — SURVEY.md §4.2, §8.3). The reference grows
-and shrinks its state/covariance dynamically in NumPy; on TPU everything is a
-fixed-capacity padded state (N_max ray slots + validity masks) so the whole
+A static-shape redesign of the reference's per-frame tracking filter
+(reference: ``slam_system/ptz_slam.py`` EKF — SURVEY.md §4.2, §8.3). The
+reference grows and shrinks its state/covariance dynamically in NumPy; here
+everything is a fixed-capacity padded state (N_max ray slots + validity masks) so the whole
 predict/update/lifecycle step is one jitted, static-shape computation, and a
 full sequence runs as a single ``lax.scan``.
 
@@ -11,16 +11,12 @@ State layout (SURVEY.md §8.3) — BLOCKED, not interleaved:
     x = (pan, tilt, f, d_pan, d_tilt, d_f, theta_1..theta_N, phi_1..phi_N)
 with dense covariance P of size (6 + 2N)^2. The reference (and round 1-3 of
 this engine) interleaves (theta_i, phi_i) pairs; that layout forces every
-blockdiag-Jacobian product through (N, 2, N, 2)-shaped reshapes, which on
-TPU are PHYSICAL relayouts against the (8, 128) register tiling — an
-op-level trace attributed ~90 us/frame (N=128) to those reshapes plus the
-diag-block reductions alone. Grouping all thetas then all phis makes every
-per-slot 2x2 Jacobian block a DIAGONAL of an (N, N) block, so the whole
-measurement algebra becomes (D, N)-shaped broadcasting and (*, 3) matmuls
-with zero relayouts. The measurement space is blocked the same way:
-residual = (x_1..x_N, y_1..y_N). For N=256 the heavy ops are ~518x518
-matmuls and a 512x512 Cholesky — small enough to live in VMEM and run
-entirely on-chip every frame.
+blockdiag-Jacobian product through (N, 2, N, 2)-shaped reshapes. Grouping
+all thetas then all phis makes every per-slot 2x2 Jacobian block a DIAGONAL
+of an (N, N) block, so the whole measurement algebra becomes (D, N)-shaped
+broadcasting and (*, 3) matmuls with no reshapes. The measurement space is
+blocked the same way: residual = (x_1..x_N, y_1..y_N). For N=256 the heavy
+ops are ~518x518 matmuls and a 512x512 Cholesky.
 
 Masking convention: slot i inactive or unobserved => its H rows are zeroed and
 its innovation zeroed, so the Kalman update is exactly the update of the
@@ -40,36 +36,37 @@ from functools import partial
 from ptzjax.config import SLAMConfig
 from ptzjax.geometry import Intrinsics, back_project_pixels, project_jacobians
 
-# Covariance algebra must not run at the TPU DEFAULT matmul precision
-# (1-pass bf16): it destroys the SPD structure of S = H P H^T + R and NaNs
-# the Cholesky (observed on v5e; CPU was fine). Two tiers are used:
+# Covariance algebra must not run at reduced matmul precision: rounding
+# destroys the SPD structure of S = H P H^T + R and NaNs the Cholesky. On
+# the H100, f32 matmuls at DEFAULT and HIGH run on the tensor cores as TF32
+# (10-bit mantissa, unit roundoff ~4.9e-4); HIGHEST is full fp32. Two tiers:
 #
-#   _mm  (HIGHEST, ~fp32): everything whose product lands in the
+#   _mm  (HIGHEST, fp32): everything whose product lands in the
 #        covariance P (Joseph form, K H, K R K^T) or feeds the Cholesky.
 #        The state is heterogeneous (focal variance in px^2 ~1e2 vs
-#        converged angle variances ~1e-6 rad^2, cond(P) ~ 1e8): bf16x3's
-#        ~4e-5 RELATIVE error couples large-scale entries into small-
-#        scale ones and destroys SPD after tens of frames (observed NaN
-#        on chip ~frame 80 with a HIGH Joseph form).
-#   _mmh (HIGH, bf16x3, rel err ~4e-5): the GAIN path only — K and the
-#        triangular-inverse products feeding it. Measured on v5e:
-#        HIGHEST is 21.7 us per (518,512)@(512,512) vs 2.8 us at HIGH.
-#        Safety: the Joseph form yields a CONSISTENT filter for ANY gain
-#        K (it computes the covariance OF the gain actually applied), so
-#        a ~1e-4-relative gain perturbation is suboptimality, not
-#        inconsistency; bench_tpu_parity gates the on-chip update against
-#        an fp64 oracle every bench run, and the 10k-frame on-chip soak
-#        bounds accumulation drift.
+#        converged angle variances ~1e-6 rad^2, cond(P) ~ 1e8): a
+#        relative matmul error far below TF32's couples large-scale entries
+#        into small-scale ones and has destroyed SPD after tens of frames
+#        (a reduced-precision Joseph form once NaN'd the closed loop near
+#        frame 80 while a single-update oracle check still passed).
+#   _mmh (HIGH, TF32): the GAIN path only — K and the triangular-inverse
+#        products feeding it. The Joseph form yields a CONSISTENT filter
+#        for ANY gain K (it computes the covariance OF the gain actually
+#        applied), so a ~1e-3-relative gain perturbation is
+#        suboptimality, not inconsistency. tests/test_precision.py runs
+#        the closed loop with these products rounded to TF32, and
+#        chip_smoke.py checks one update on the card against an fp64
+#        oracle and runs the closed loop there.
 _mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 _mmh = partial(jnp.matmul, precision=jax.lax.Precision.HIGH)
 
 
 def _inv_lower(l: jax.Array) -> jax.Array:
-    """Exact inverse of a lower-triangular matrix, MXU-shaped.
+    """Exact inverse of a lower-triangular matrix from matmuls only.
 
-    Triangular SUBSTITUTION (what XLA's triangular_solve lowers to on TPU)
-    is an n-step serial while loop — ~24 us/frame for the EKF's two solves
-    at n=256 on v5e. Instead: write L = D (I - N) with D = diag(L) and N
+    Triangular SUBSTITUTION is an n-step serial dependence chain; whether
+    cuBLAS's triangular solve beats this on the H100 is unmeasured
+    (ROADMAP D4/S5). Instead: write L = D (I - N) with D = diag(L) and N
     strictly lower, so N is nilpotent (N^n = 0) and the inverse is the
     FINITE Neumann product (I-N)^{-1} = prod_k (I + N^{2^k}), k < log2(n)
     — pure matmul algebra, fp-exact in structure (no approximation).
@@ -104,20 +101,20 @@ def _inv_chol(s: jax.Array, leaf: int = 128) -> jax.Array:
     """L^{-1} of the Cholesky factor of SPD ``s``, via 2x2 block recursion
     with XLA-chol leaves — so S^{-1} = il.T @ il.
 
-    XLA's TPU Cholesky is an n-step serial While loop whose per-step cost
-    grows with n (measured on v5e: 28 us at n=256, 93 us at n=512 — worse
-    than linear). The textbook block factorization
+    A Cholesky factorization is a serial chain of n steps. The textbook
+    block factorization
         S = [[A, B^T], [B, C]],  L = [[L_A, 0], [L21, L_S]],
         L21 = B L_A^{-T},  L_S = chol(C - L21 L21^T)
     replaces one big serial factorization with two half-size ones plus
-    MXU matmuls, and because the EKF only ever consumes L^{-1}, the
+    matmuls, and because the EKF only ever consumes L^{-1}, the
     recursion INVERTS as it factors (leaf: XLA chol + ``_inv_lower``'s
     finite Neumann product):
         L^{-1} = [[iLA, 0], [-iLS L21 iLA, iLS]]
     — the leading block is never inverted twice. Exact algebra (same
     factorization, different operation order); products feeding the Schur
     complement run at HIGHEST (it must stay SPD). Recursing 512 -> four
-    128-leaves cuts the serial chol chain ~2x end-to-end.
+    128-leaves shortens the serial chol chain; whether cuSOLVER's
+    ``cho_factor``/``cho_solve`` is faster on the H100 is ROADMAP D4/S5.
     """
     n = s.shape[0]
     if n <= leaf or n % 2:
@@ -274,8 +271,7 @@ def update(
     # H = [Jc | 0 | diag-blocks], never materialized. In the blocked state
     # each per-slot 2x2 ray-Jacobian entry becomes a DIAGONAL of an (N, N)
     # block, so every blockdiag product below is a broadcast multiply on
-    # (D, N) tiles — no (N, 2, N, 2) relayouts (those reshapes measured
-    # ~90 us/frame at N=128 on v5e).
+    # (D, N) tiles — no (N, 2, N, 2) reshapes.
     jcx = j_cam[:, 0, :]                                 # (N, 3)
     jcy = j_cam[:, 1, :]
     jra = j_ray[:, 0, 0]                                 # (N,) dx/dtheta
@@ -347,19 +343,12 @@ def update(
     jrc = jrc * u1
     jrd = jrd * u1
 
-    # JOINT update with a two-tier precision split. The covariance path
-    # (everything whose product lands in P) must run at HIGHEST: the state
-    # is heterogeneous (focal variance in px^2 ~1e2 vs converged angle
-    # variances ~1e-6 rad^2, cond(P) ~ 1e8), so bf16x3's ~4e-5 RELATIVE
-    # matmul error couples large-scale entries into small-scale ones and
-    # kills the SPD structure after tens of frames (observed on v5e:
-    # Cholesky NaN around frame ~79 with a HIGH Joseph form — the single-
-    # update oracle passed because its test covariance was well-scaled).
-    # The GAIN path is different: the Joseph form yields a consistent
-    # filter for ANY gain value, so K itself (and the triangular inverse
-    # feeding it) runs at HIGH (bf16x3) — a ~1e-4-relative gain
-    # perturbation is a 1e-4 suboptimality, not an instability; gated
-    # on-chip against the fp64 oracle every bench run (bench_tpu_parity).
+    # JOINT update with the two-tier precision split of _mm/_mmh (module
+    # top): the covariance path (everything whose product lands in P) runs
+    # at HIGHEST, full fp32; the GAIN path (K and the triangular inverse
+    # feeding it) runs at HIGH, TF32 on the H100 — the Joseph form keeps
+    # the filter consistent for any gain, so TF32 rounding of K is a
+    # suboptimality, not an instability.
     ph_t = jnp.concatenate([pht_x, pht_y], axis=1) * jnp.concatenate(
         [u1, u1]
     )[None, :]                                           # (D, 2N), masked
@@ -485,11 +474,8 @@ def claim_slots(active: jax.Array, cand_mask: jax.Array) -> SlotClaim:
     """Assign accepted candidates to free slots, fully scatter-free.
 
     The rank->index maps are built with ``searchsorted`` over the rank
-    cumsums (both nondecreasing) instead of rank-scatters: TPU scatters
-    execute near-serially per update row (~30-40 ns each — an op-level
-    trace attributed ~56 us/frame to the tracking step's scatters at
-    K=256), while searchsorted is log2(N) fully-vectorized compare/gather
-    steps. Callers should use ``cand_of_slot`` gathers + masked selects
+    cumsums (both nondecreasing) instead of rank-scatters; whether a plain
+    ``.at[].set`` is as fast on the H100 is ROADMAP D2. Callers should use ``cand_of_slot`` gathers + masked selects
     for the heavy payloads."""
     n = active.shape[0]
     k = cand_mask.shape[0]
@@ -537,10 +523,9 @@ def insert_rays(
     the camera and the filter can silently absorb pose error into the map
     (observed as a locked-in focal-length bias on noiseless data).
 
-    All writes are slot-major gathers + dense masked selects: the previous
-    per-candidate scatter of the (2K, 2K) new-new block was ~262k scattered
-    elements per frame and alone cost more device time than everything else
-    in the tracking step combined (profiled on v5e).
+    All writes are slot-major gathers + dense masked selects, not a
+    per-candidate scatter of the (2K, 2K) new-new block (~262k scattered
+    elements per frame).
 
     Args:
       pixels: (K, 2) candidate keypoint positions.

@@ -176,3 +176,76 @@ def evaluate_run(
         "mean_matches": float(np.asarray(h.num_matches).mean()),
         "mean_active_slots": float(np.asarray(h.num_active_slots).mean()),
     }
+
+
+def ekf_update_oracle_errors(
+    n: int = 256, seed: int = 3
+) -> tuple[float, float]:
+    """One joint EKF update at ``n`` ray slots against an fp64 dense-H
+    Kalman update of the same state and observations.
+
+    The state is an SPD covariance with off-diagonal coupling, all slots
+    active and observed with 1 px noise. Returns (cam_err, cov_rel_err):
+    the max absolute camera-state error and the max covariance error
+    relative to the largest covariance entry. On the H100 this is the check
+    of the TF32 gain path (``ekf._mmh``) for a single update; the closed
+    loop is checked separately.
+    """
+    from ptzjax import ekf as ekflib
+    from ptzjax.config import SLAMConfig
+    from ptzjax.geometry import project_jacobians
+
+    rng = np.random.default_rng(seed)
+    intr = Intrinsics.create(640.0, 360.0)
+    cfg = SLAMConfig(max_rays=n, sigma_obs=1.0, min_inliers=2,
+                     innovation_gate_px=1e6, gate_maha2=1e9)
+    d = 6 + 2 * n
+    est = ekflib.init_state(np.array([0.1, -0.05, 2000.0], np.float32), cfg)
+    rays = np.stack(
+        [rng.uniform(0.0, 0.2, n), rng.uniform(-0.15, 0.0, n)], -1
+    ).astype(np.float32)
+    a = rng.normal(size=(d, d)).astype(np.float32) * 0.01
+    cov = a @ a.T + np.diag(rng.uniform(0.3, 1.0, d)).astype(np.float32)
+    cov = (0.5 * (cov + cov.T)).astype(np.float32)
+    est = est._replace(
+        rays=jnp.asarray(rays), cov=jnp.asarray(cov),
+        active=jnp.ones((n,), bool),
+        ray_ids=jnp.arange(n, dtype=jnp.int32),
+    )
+    pred = np.asarray(project_rays(est.pose, est.rays, intr))
+    obs = (pred + rng.normal(0, 1.0, pred.shape)).astype(np.float32)
+    new, stats = jax.jit(
+        lambda s, o: ekflib.update(s, o, jnp.ones((n,), bool), intr, cfg)
+    )(est, jnp.asarray(obs))
+    used = np.asarray(stats.used_mask)
+
+    # fp64 reference with H materialized in the blocked layout
+    _, j_cam, j_ray = project_jacobians(est.pose, est.rays, intr)
+    jc = np.asarray(j_cam, np.float64) * used[:, None, None]
+    jr = np.asarray(j_ray, np.float64) * used[:, None, None]
+    h = np.zeros((2 * n, d))
+    idx = np.arange(n)
+    h[idx, 0:3] = jc[:, 0]
+    h[n + idx, 0:3] = jc[:, 1]
+    h[idx, 6 + idx] = jr[:, 0, 0]
+    h[idx, 6 + n + idx] = jr[:, 0, 1]
+    h[n + idx, 6 + idx] = jr[:, 1, 0]
+    h[n + idx, 6 + n + idx] = jr[:, 1, 1]
+    p64 = cov.astype(np.float64)
+    r64 = np.eye(2 * n)
+    innov2 = np.where(used[:, None], obs - pred, 0.0)
+    innov = np.concatenate([innov2[:, 0], innov2[:, 1]])
+    s64 = h @ p64 @ h.T + r64
+    k64 = p64 @ h.T @ np.linalg.inv(s64)
+    dx = k64 @ innov
+    ikh = np.eye(d) - k64 @ h
+    cov_ref = ikh @ p64 @ ikh.T + k64 @ r64 @ k64.T
+    cam_err = float(
+        np.abs(np.asarray(new.cam[:3], np.float64)
+               - (np.asarray(est.cam[:3], np.float64) + dx[:3])).max()
+    )
+    cov_err = float(
+        np.abs(np.asarray(new.cov, np.float64) - cov_ref).max()
+        / np.abs(cov_ref).max()
+    )
+    return cam_err, cov_err

@@ -1,8 +1,8 @@
 """Frame feature containers + synthetic feature adapter.
 
 ``FrameFeatures`` is the fixed-capacity interface between the vision layer
-(Pallas detect/describe kernels, or OpenCV ingestion, or the synthetic
-oracle) and the SLAM loop — the TPU-native analogue of the reference's
+(the jax detect/describe kernels, or OpenCV ingestion, or the synthetic
+oracle) and the SLAM loop — the static-shape analogue of the reference's
 (keypoints, descriptors) pairs from ``slam_system/image_process.py``
 (SURVEY.md §2 layer 3).
 """

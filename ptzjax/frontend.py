@@ -1,10 +1,10 @@
 """Image frontend: raw frames -> fixed-capacity ``FrameFeatures``.
 
-The TPU-native analogue of the reference's per-frame OpenCV call sequence
+The on-device analogue of the reference's per-frame OpenCV call sequence
 (``slam_system/image_process.py`` ``detect_compute_sift`` + masking —
-SURVEY.md §2 layer 3, §4.1/§4.2): one jitted pipeline running the Pallas
-Harris detector, the upright-SIFT descriptor kernel, and the padding/mask
-logic on device. The output plugs straight into ``PTZSlam.step`` /
+SURVEY.md §2 layer 3, §4.1/§4.2): one jitted pipeline running the Harris
+detector, the upright-SIFT descriptor, and the padding/mask logic on
+device. The output plugs straight into ``PTZSlam.step`` /
 ``run_segment`` — the SLAM loop is agnostic to whether features came from
 here, from OpenCV ingestion (``ptzjax.io``), or from the synthetic oracle.
 """
@@ -23,7 +23,7 @@ from ptzjax.kernels.detect import detect_keypoints
 
 def _desc_scale(cfg: SLAMConfig, focal) -> jax.Array | None:
     """Per-frame descriptor sample spacing from the current focal estimate
-    (zoom normalization — VERDICT r1 item 3). None when disabled or no
+    (zoom normalization). None when disabled or no
     focal estimate is available.
 
     ``descriptor_f_ref = -1`` (AUTO) must be resolved to a concrete focal
@@ -50,12 +50,11 @@ def _desc_scale(cfg: SLAMConfig, focal) -> jax.Array | None:
     return jnp.asarray(focal, jnp.float32) / cfg.descriptor_f_ref
 
 
-@partial(jax.jit, static_argnames=("cfg", "use_pallas"))
+@partial(jax.jit, static_argnames=("cfg",))
 def extract_features(
     img: jax.Array,
     cfg: SLAMConfig,
     mask: jax.Array | None = None,
-    use_pallas: bool = True,
     focal: jax.Array | None = None,
 ):
     """Detect + describe one grayscale frame.
@@ -64,7 +63,6 @@ def extract_features(
       img: (H, W) float grayscale.
       mask: optional (H, W) bool, True where detection is allowed (the
         complement of the reference's player bounding boxes).
-      use_pallas: fused TPU detector kernel (jax fallback off-TPU).
       focal: optional current focal-length estimate; with
         cfg.descriptor_f_ref set, descriptors sample at f/f_ref spacing so
         their angular footprint is zoom-invariant.
@@ -77,16 +75,14 @@ def extract_features(
         max_keypoints=cfg.max_keypoints,
         threshold=cfg.detector_threshold,
         mask=mask,
-        use_pallas=use_pallas,
     )
     desc = describe_keypoints(
-        img, kp.xy, kp.valid, scale=_desc_scale(cfg, focal),
-        use_pallas=use_pallas,
+        img, kp.xy, kp.valid, scale=_desc_scale(cfg, focal)
     )
     return kp.xy, desc, kp.valid
 
 
-@partial(jax.jit, static_argnames=("cfg", "use_pallas"))
+@partial(jax.jit, static_argnames=("cfg",))
 def track_features(
     img_prev: jax.Array,
     img_next: jax.Array,
@@ -94,7 +90,6 @@ def track_features(
     valid: jax.Array,
     cfg: SLAMConfig,
     mask: jax.Array | None = None,
-    use_pallas: bool = True,
     focal: jax.Array | None = None,
 ):
     """KLT-mode frontend step: track the existing keypoint table into the
@@ -125,7 +120,7 @@ def track_features(
     res = lk_track(
         img_prev, img_next, xy, valid,
         levels=cfg.flow_levels, patch=cfg.flow_patch, iters=cfg.flow_iters,
-        fb_tol=cfg.track_gate_px / 4.0, use_pallas=use_pallas,
+        fb_tol=cfg.track_gate_px / 4.0,
     )
     tracked = res.tracked
 
@@ -136,7 +131,6 @@ def track_features(
         max_keypoints=k,
         threshold=cfg.detector_threshold,
         mask=mask,
-        use_pallas=use_pallas,
     )
     d2 = ((kp.xy[:, None, :] - res.xy[None, :, :]) ** 2).sum(-1)
     near_track = (d2 < cfg.min_refill_dist_px**2) & tracked[None, :]
@@ -155,20 +149,19 @@ def track_features(
     new_xy = res.xy.at[target].set(kp.xy, mode="drop")
     new_valid = tracked.at[target].set(True, mode="drop")
     desc = describe_keypoints(
-        img_next, new_xy, new_valid, scale=_desc_scale(cfg, focal),
-        use_pallas=use_pallas,
+        img_next, new_xy, new_valid, scale=_desc_scale(cfg, focal)
     )
     return new_xy, desc, new_valid, tracked
 
 
-def extract_sequence(imgs, cfg: SLAMConfig, masks=None, use_pallas: bool = True):
+def extract_sequence(imgs, cfg: SLAMConfig, masks=None):
     """Batch feature extraction over a (T, H, W) stack via ``lax.map``
-    (sequential on device: one frame's maps live in HBM at a time)."""
+    (sequential on device: one frame's maps live in device memory at a
+    time)."""
     imgs = jnp.asarray(imgs)
-    fn = lambda im: extract_features(im, cfg, use_pallas=use_pallas)
     if masks is None:
-        return jax.lax.map(fn, imgs)
+        return jax.lax.map(lambda im: extract_features(im, cfg), imgs)
     return jax.lax.map(
-        lambda args: extract_features(args[0], cfg, mask=args[1], use_pallas=use_pallas),
+        lambda args: extract_features(args[0], cfg, mask=args[1]),
         (imgs, jnp.asarray(masks)),
     )

@@ -4,7 +4,7 @@ BASELINE.md config 1 runs the tracker on "reference feature matches" — SIFT
 keypoints/descriptors as the reference's own vision layer produces them
 (``slam_system/image_process.py`` ``detect_compute_sift``). This module
 produces exactly that: cv2 SIFT on the host, padded into the same
-``FrameFeatures`` tables the TPU kernels emit, so accuracy comparisons
+``FrameFeatures`` tables the on-device kernels emit, so accuracy comparisons
 isolate the SLAM math from detector quality (SURVEY.md §10 "hard parts":
 SIFT parity is judged at the trajectory level).
 

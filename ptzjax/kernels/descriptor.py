@@ -1,6 +1,6 @@
 """SIFT-style descriptors at fixed-capacity keypoint tables.
 
-TPU-native replacement for the descriptor half of the reference's OpenCV
+The on-device replacement for the descriptor half of the reference's OpenCV
 SIFT (``slam_system/image_process.py`` ``detect_compute_sift`` — SURVEY.md
 §2 layer 3, §8.5): a 4x4-cell x 8-orientation gradient histogram over a
 16x16 patch, Gaussian-weighted, bilinearly soft-binned over space and
@@ -22,14 +22,11 @@ extraction per keypoint (batched ``dynamic_slice`` — whole rows, no
 scattered gathers) and (b) a 4-term blend of static shifts of that patch.
 Gradients are central differences inside the patch (linear ops commute
 with the bilinear blend, so this is exact). The histogram accumulation is
-an einsum over precomputed soft-binning weights, which XLA maps onto the
-MXU. The scattered-gather formulation this replaces was ~10x slower on
-TPU (gathers serialize; contiguous slices ride the DMA path).
+an einsum over precomputed soft-binning weights, a batched matrix product
+for XLA.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -71,9 +68,7 @@ def _spatial_weights() -> jnp.ndarray:
 
 def _window_starts(img: jax.Array, xy: jax.Array, win: int):
     """Shared geometry of the window extraction: padded image, integer
-    window starts, and fractional offsets (identical for both backends —
-    parity between them is bitwise because the blend below consumes the
-    exact same fp32 values)."""
+    window starts, and fractional offsets."""
     h, w = img.shape
     half = win // 2
     pad = half + 1
@@ -100,31 +95,19 @@ def _blend(patches, fy, fx, win: int) -> jax.Array:
     )                                                    # (K, win, win)
 
 
-def _extract_aligned(
-    img: jax.Array, xy: jax.Array, win: int, use_pallas: bool = False
-) -> jax.Array:
+def _extract_aligned(img: jax.Array, xy: jax.Array, win: int) -> jax.Array:
     """Per-keypoint (win, win) windows, subpixel-aligned to the keypoint.
 
     Returned window center (index (win-1)/2 + 0.5 convention) sits exactly
-    on the keypoint. Two backends with BITWISE-identical output:
-
-    - jax: one contiguous ``dynamic_slice`` per keypoint. XLA lowers the
-      vmap to a sequential while loop (~0.42 ms/frame at K=256/win=46 —
-      half the from-pixels frame budget; see benchmarks/RESULTS.md).
-    - pallas (``use_pallas=True``): grid-parallel batched DMA gather
-      (kernels/window_pallas.py), ~15x faster on chip.
+    on the keypoint. The vmapped ``dynamic_slice`` of one contiguous
+    (win+1, win+1) window per keypoint lowers to a single XLA gather.
     """
     pimg, ys, xs, fy, fx = _window_starts(img, xy, win)
-    if use_pallas:
-        from ptzjax.kernels.window_pallas import gather_windows_pallas
-
-        patches = gather_windows_pallas(pimg, ys, xs, win)
-    else:
-        patches = jax.vmap(
-            lambda yy, xx: jax.lax.dynamic_slice(
-                pimg, (yy, xx), (win + 1, win + 1)
-            )
-        )(ys, xs)                                        # (K, win+1, win+1)
+    patches = jax.vmap(
+        lambda yy, xx: jax.lax.dynamic_slice(
+            pimg, (yy, xx), (win + 1, win + 1)
+        )
+    )(ys, xs)                                            # (K, win+1, win+1)
     return _blend(patches, fy, fx, win)
 
 
@@ -138,13 +121,12 @@ def _resample_matrix(scale: jax.Array, n_out: int, win: int) -> jax.Array:
     return jnp.clip(1.0 - jnp.abs(pos[:, None] - j[None, :]), 0.0, 1.0)
 
 
-@partial(jax.jit, static_argnames=("use_pallas",))
+@jax.jit
 def describe_keypoints(
     img: jax.Array,
     xy: jax.Array,
     valid: jax.Array,
     scale: jax.Array | None = None,
-    use_pallas: bool = False,
 ) -> jax.Array:
     """Compute (K, 128) unit-norm upright-SIFT descriptors.
 
@@ -159,9 +141,6 @@ def describe_keypoints(
         footprint constant across zoom — no octave pyramid needed. Clamped
         to [1/MAX_SCALE, MAX_SCALE]. None = fixed 1-pixel spacing (slightly
         cheaper; identical to scale=1).
-      use_pallas: gather the per-keypoint windows with the batched-DMA TPU
-        kernel (kernels/window_pallas.py) instead of XLA's sequential
-        gather loop — bitwise-identical descriptors, ~15x faster on chip.
 
     Returns:
       (K, 128) fp32, L2-normalized per row (zeros where invalid).
@@ -169,18 +148,14 @@ def describe_keypoints(
     img = img.astype(jnp.float32)
 
     if scale is None:
-        sub = _extract_aligned(
-            img, xy, PATCH + 2, use_pallas=use_pallas
-        )                                                # (K, P+2, P+2)
+        sub = _extract_aligned(img, xy, PATCH + 2)       # (K, P+2, P+2)
     else:
         s = jnp.clip(
             jnp.asarray(scale, jnp.float32), 1.0 / MAX_SCALE, MAX_SCALE
         )
-        windows = _extract_aligned(
-            img, xy, SCALED_WIN, use_pallas=use_pallas
-        )                                                # (K, W, W)
+        windows = _extract_aligned(img, xy, SCALED_WIN)  # (K, W, W)
         r = _resample_matrix(s, PATCH + 2, SCALED_WIN)   # (P+2, W)
-        # separable shared-weight resample: two small MXU matmuls
+        # separable shared-weight resample: two small batched matmuls
         sub = jnp.einsum(
             "iw,kwv,jv->kij", r, windows, r,
             preferred_element_type=jnp.float32,

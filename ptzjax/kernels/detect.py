@@ -1,23 +1,15 @@
-"""Keypoint detection: fused Harris response + grid NMS + top-k table.
+"""Keypoint detection: Harris response + 3x3 NMS + top-k table.
 
-TPU-native replacement for the reference's OpenCV SIFT detector
+The on-device replacement for the reference's OpenCV SIFT detector
 (``slam_system/image_process.py`` ``detect_compute_sift`` — SURVEY.md §2
 layer 3, §8.5). We use a Harris corner response rather than a DoG pyramid:
 broadcast PTZ video has no in-plane rotation and modest per-frame scale
 change, so single-scale corners + the descriptor's normalization carry the
-matching load, and a single fused response pass maps far better onto TPU
-tiles than a variable-octave pyramid.
+matching load, and one response pass is a short chain of elementwise
+stencils that XLA fuses, where a variable-octave pyramid is not.
 
-Two implementations with identical semantics:
-
-- ``harris_response`` / ``detect_keypoints``: pure jax.numpy reference —
-  defines semantics, runs on any backend, and is what the tests oracle
-  against (plus a NumPy oracle in ``tests/oracle``).
-- ``harris_response_pallas``: Pallas TPU kernel computing gradients,
-  smoothing, response, and 3x3 NMS suppression in ONE pass over
-  VMEM-resident row slabs — the intermediate gradient/product maps
-  (5 x H x W fp32) never touch HBM, so the kernel is one-read-one-write
-  at HBM bandwidth.
+``harris_response`` / ``_nms3`` are plain jax.numpy; the tests check them
+against a NumPy oracle (``tests/oracle/harris_np.py``).
 
 The detector is masked (player boxes / static overlays): masked pixels get
 response -inf, mirroring the reference's keypoint masking behavior.
@@ -56,9 +48,7 @@ class KeypointTable(NamedTuple):
 
 def _smooth5(x: jax.Array) -> jax.Array:
     """Separable 5-tap binomial smoothing (approx Gaussian sigma~1)."""
-    # python-float taps: a jnp constant created during tracing is captured
-    # as a device-array executable constant, which costs ~26 ms per dispatch
-    # on this backend (see kernels/flow.py _binomial5)
+    # python-float taps fold into the fused stencil as literals
     k = (1 / 16.0, 4 / 16.0, 6 / 16.0, 4 / 16.0, 1 / 16.0)
 
     def conv1d(a, axis):
@@ -133,14 +123,13 @@ def _subpixel(resp: jax.Array, ys: jax.Array, xs: jax.Array):
     return jnp.clip(off_x, -0.5, 0.5), jnp.clip(off_y, -0.5, 0.5)
 
 
-@partial(jax.jit, static_argnames=("max_keypoints", "use_pallas", "exact_topk"))
+@partial(jax.jit, static_argnames=("max_keypoints", "exact_topk"))
 def detect_keypoints(
     img: jax.Array,
     max_keypoints: int,
     threshold: float = 1e-4,
     mask: jax.Array | None = None,
     border: int = 8,
-    use_pallas: bool = False,
     exact_topk: bool = False,
 ) -> KeypointTable:
     """Detect up to ``max_keypoints`` Harris corners.
@@ -152,28 +141,18 @@ def detect_keypoints(
       mask: optional (H, W) bool, True where detection is ALLOWED (the
         complement of the reference's player boxes).
       border: pixels to ignore at the image edge.
-      use_pallas: fused TPU kernel for the response+NMS pass.
-      exact_topk: use exact ``lax.top_k`` for candidate selection. The
-        default uses the TPU-optimized ``lax.approx_max_k`` at
-        recall_target=0.99: on a 720p map the exact sort costs 1.20 ms —
-        90% of the whole detect stage and 60% of the full from-pixels frame
-        budget (profiled, benchmarks/profile_pixels.py) — vs 0.08 ms
-        approximate. The ~1% misses are tail-boundary keypoints whose
-        scores tie the cut anyway; the strongest corners are always kept,
-        and the pallas/jax paths stay bitwise-identical (both select from
-        the same suppressed map with the same op).
+      exact_topk: select candidates with ``lax.top_k``. The default,
+        ``lax.approx_max_k`` at recall_target=0.99, is an approximate
+        selection only on backends that implement it; on the GPU and the CPU
+        XLA lowers it to an exact sort-and-slice, so both settings keep the
+        same keypoints there (equal scores may come in another order).
 
     Returns:
       KeypointTable sorted by descending score.
     """
     h, w = img.shape
-    if use_pallas:
-        from ptzjax.kernels.detect_pallas import harris_nms_pallas
-
-        resp, sup = harris_nms_pallas(img.astype(jnp.float32))
-    else:
-        resp = harris_response(img)
-        sup = _nms3(resp)
+    resp = harris_response(img)
+    sup = _nms3(resp)
 
     if mask is not None:
         sup = jnp.where(mask, sup, _NEG)

@@ -1,6 +1,6 @@
 """Pyramidal Lucas-Kanade optical flow at fixed-capacity keypoint tables.
 
-TPU-native equivalent of the reference's KLT tracking-mode matcher
+The on-device equivalent of the reference's KLT tracking-mode matcher
 (``slam_system/image_process.py`` ``optical_flow_matching`` via
 ``cv2.calcOpticalFlowPyrLK`` — SURVEY.md §2 layer 3, §4.2, §8.5). The SLAM
 loop's default association is descriptor re-match (``ptzjax.match``); this
@@ -20,7 +20,7 @@ Design (everything static-shape, one jit):
     kernel: one ``dynamic_slice`` of a (P+1, P+1) window per keypoint plus
     a 4-term blend of static shifts — every sample of a keypoint shares
     the same fractional offset, so the blend IS bilinear interpolation.
-    No scattered gathers anywhere (gathers serialize on TPU).
+    The K windows are one XLA gather; nothing in the Newton loop gathers.
   * validity: G min-eigenvalue (texturedness, the Shi-Tomasi criterion),
     in-bounds check, residual bound, and an optional forward-backward
     consistency pass (track next->prev and demand round-trip < fb_tol px)
@@ -54,10 +54,7 @@ class FlowResult(NamedTuple):
 def _binomial5(a: jax.Array) -> jax.Array:
     """Separable 5-tap binomial blur (1 4 6 4 1)/16 — the standard pyramid
     anti-aliasing filter. Edge-padded so borders don't darken."""
-    # python-float taps, NOT a jnp constant: a concrete device array created
-    # during tracing is captured as an executable constant, and on this
-    # backend every dispatch touching one stalls ~26 ms (vs ~0.05 ms with
-    # literals) — it turned this whole kernel from 0.3 ms into 37 ms
+    # python-float taps fold into the fused stencil as literals
     k = (1 / 16.0, 4 / 16.0, 6 / 16.0, 4 / 16.0, 1 / 16.0)
 
     def conv(x, axis):
@@ -83,29 +80,17 @@ def build_pyramid(img: jax.Array, levels: int) -> list[jax.Array]:
     return pyr
 
 
-def _gather(pimg: jax.Array, ys: jax.Array, xs: jax.Array, size: int,
-            use_pallas: bool) -> jax.Array:
-    """(K, size, size) integer windows ``pimg[ys:ys+size, xs:xs+size]``.
-
-    ``use_pallas`` routes through the batched-DMA gather kernel
-    (kernels/window_pallas.py) — bitwise-identical values; the XLA vmapped
-    dynamic_slice lowers to a SEQUENTIAL per-keypoint loop and made this
-    module's 16 gather calls per track (4 levels x 2 windows x 2
-    directions) cost ~13 ms/frame-pair at 512 kp."""
-    if use_pallas:
-        from ptzjax.kernels.window_pallas import gather_windows_pallas
-
-        return gather_windows_pallas(pimg, ys, xs, size - 1)[
-            :, :size, :size
-        ]
+def _gather(
+    pimg: jax.Array, ys: jax.Array, xs: jax.Array, size: int
+) -> jax.Array:
+    """(K, size, size) integer windows ``pimg[ys:ys+size, xs:xs+size]``:
+    a vmapped ``dynamic_slice``, which XLA lowers to one gather."""
     return jax.vmap(
         lambda yy, xx: jax.lax.dynamic_slice(pimg, (yy, xx), (size, size))
     )(ys, xs)
 
 
-def _sample_patches(
-    img: jax.Array, xy: jax.Array, patch: int, use_pallas: bool = False
-) -> jax.Array:
+def _sample_patches(img: jax.Array, xy: jax.Array, patch: int) -> jax.Array:
     """(K, patch, patch) bilinear patches centered on subpixel ``xy``:
     sample p of a patch sits exactly at xy + (p - (patch-1)/2) (odd patch
     sizes — the windowed einsum sampler in ``_lk_level`` uses the same
@@ -122,7 +107,7 @@ def _sample_patches(
     fx = jnp.clip(xy[:, 0] - x0, 0.0, 1.0)[:, None, None]
     ys = jnp.clip(y0 - c + pad, 0, h + 2 * pad - win)
     xs = jnp.clip(x0 - c + pad, 0, w + 2 * pad - win)
-    windows = _gather(pimg, ys, xs, win, use_pallas)     # (K, win, win)
+    windows = _gather(pimg, ys, xs, win)                 # (K, win, win)
     return (
         windows[:, :-1, :-1] * (1 - fy) * (1 - fx)
         + windows[:, :-1, 1:] * (1 - fy) * fx
@@ -143,8 +128,7 @@ _DISP = 5
 
 
 def _extract_windows(
-    img: jax.Array, xy: jax.Array, win: int, anchor_off: int,
-    use_pallas: bool = False,
+    img: jax.Array, xy: jax.Array, win: int, anchor_off: int
 ):
     """(K, win, win) integer-aligned windows whose (anchor_off, anchor_off)
     pixel sits at round(xy). Returns (windows, anchor) with anchor the
@@ -156,7 +140,7 @@ def _extract_windows(
     x0 = jnp.round(xy[:, 0]).astype(jnp.int32) - anchor_off
     ys = jnp.clip(y0 + pad, 0, h + 2 * pad - win)
     xs = jnp.clip(x0 + pad, 0, w + 2 * pad - win)
-    windows = _gather(pimg, ys, xs, win, use_pallas)
+    windows = _gather(pimg, ys, xs, win)
     anchor = jnp.stack([xs - pad, ys - pad], -1).astype(jnp.float32)  # (K, 2)
     return windows, anchor
 
@@ -171,22 +155,33 @@ def _sel_weights(pos: jax.Array, patch: int, win: int) -> jax.Array:
     return jnp.clip(1.0 - jnp.abs(t - wco), 0.0, 1.0)         # (K, P, W)
 
 
-def _lk_level(prev, nxt, xy_prev, guess, patch: int, iters: int,
-              use_pallas: bool = False):
+def _select(sy: jax.Array, windows: jax.Array, sx: jax.Array) -> jax.Array:
+    """(K, P, P) bilinear samples: sy @ window @ sx^T per keypoint.
+
+    HIGH is TF32 on the H100's tensor cores (10-bit mantissa, unit
+    roundoff ~4.9e-4) and fp32 on the CPU. LK needs ~1e-3 relative
+    accuracy here for stable subpixel convergence, which TF32 meets;
+    tests/test_precision.py runs the closed KLT loop with these products
+    rounded to TF32, and chip_smoke.py runs it on the card."""
+    return jnp.einsum(
+        "kpw,kwv,kqv->kpq", sy, windows, sx,
+        precision=jax.lax.Precision.HIGH,
+    )
+
+
+def _lk_level(prev, nxt, xy_prev, guess, patch: int, iters: int):
     """One pyramid level of iterative LK for all keypoints.
 
-    TPU realization: per-keypoint windows of the next frame are gathered
-    ONCE (one batched dynamic_slice), and every Newton iteration samples
-    inside them with bilinear selection-matrix einsums — batched (P, W) x
-    (W, W) x (W, P) matmuls on the MXU, zero gathers in the loop. The
-    naive resample-at-guess formulation issued K dynamic-slices per
-    iteration per level per direction (~10k serialized gathers per call)
-    and was ~10x slower end-to-end.
+    Per-keypoint windows of the next frame are gathered ONCE (one batched
+    dynamic_slice), and every Newton iteration samples inside them with
+    bilinear selection-matrix einsums — batched (P, W) x (W, W) x (W, P)
+    matmuls, zero gathers in the loop, where resampling at each guess
+    would gather K windows per iteration per level per direction.
 
     Returns (refined guess (K, 2), min_eig (K,), residual (K,)).
     """
     # template + fixed spatial gradients from the previous frame
-    tmpl_w = _sample_patches(prev, xy_prev, patch + 2, use_pallas)  # (K, P+2, P+2)
+    tmpl_w = _sample_patches(prev, xy_prev, patch + 2)   # (K, P+2, P+2)
     tmpl = tmpl_w[:, 1:-1, 1:-1]
     gx = 0.5 * (tmpl_w[:, 1:-1, 2:] - tmpl_w[:, 1:-1, :-2])
     gy = 0.5 * (tmpl_w[:, 2:, 1:-1] - tmpl_w[:, :-2, 1:-1])
@@ -202,24 +197,13 @@ def _lk_level(prev, nxt, xy_prev, guess, patch: int, iters: int,
     # next-frame windows around the initial guess, wide enough for the
     # whole in-level search (_DISP px each way)
     win = patch + 2 * _DISP + 1
-    windows, anchor = _extract_windows(
-        nxt, guess, win, _DISP + patch // 2, use_pallas
-    )
-    # HIGH (bf16x3, rel ~4e-5): the bilinear selection products need
-    # ~1e-3 relative accuracy for stable subpixel convergence; HIGHEST
-    # (6-pass) measured ~8x the cost per matmul on v5e for no LK benefit.
-    # 1-pass DEFAULT (~4e-3) is NOT enough — it visibly perturbs the
-    # Newton steps near convergence.
-    hi = jax.lax.Precision.HIGH
-
+    windows, anchor = _extract_windows(nxt, guess, win, _DISP + patch // 2)
     def sample(g):
         # corner of the patch in window coordinates (fractional)
         corner = g - anchor - (patch - 1) / 2.0           # (K, 2) x, y
         sy = _sel_weights(corner[:, 1], patch, win)       # (K, P, W)
         sx = _sel_weights(corner[:, 0], patch, win)
-        return jnp.einsum(
-            "kpw,kwv,kqv->kpq", sy, windows, sx, precision=hi
-        )                                                 # (K, P, P)
+        return _select(sy, windows, sx)                   # (K, P, P)
 
     def body(_, g):
         di = tmpl - sample(g)                             # (K, P, P)
@@ -240,8 +224,7 @@ def _lk_level(prev, nxt, xy_prev, guess, patch: int, iters: int,
     return guess, min_eig, resid
 
 
-def _lk_forward(prev_pyr, next_pyr, xy, patch: int, iters: int,
-                use_pallas: bool = False):
+def _lk_forward(prev_pyr, next_pyr, xy, patch: int, iters: int):
     """Coarse-to-fine LK through prebuilt pyramids; returns
     (xy_next, min_eig@level0, residual@level0).
 
@@ -250,7 +233,7 @@ def _lk_forward(prev_pyr, next_pyr, xy, patch: int, iters: int,
     level's convergence basin (~patch/2 px), which quadratic LK reaches in
     2-3 steps; only level 0 runs the full ``iters`` for subpixel accuracy.
     Full-iteration coarse levels measured 0 tracking-quality gain for ~35%
-    of the forward cost (VERDICT r4 weak #4 optimization round)."""
+    of the forward cost."""
     levels = len(prev_pyr)
     scale = 2.0 ** (levels - 1)
     guess = xy / scale
@@ -261,7 +244,6 @@ def _lk_forward(prev_pyr, next_pyr, xy, patch: int, iters: int,
         guess, min_eig, resid = _lk_level(
             prev_pyr[lvl], next_pyr[lvl], xy / s, guess, patch,
             iters if lvl == 0 else coarse_iters,
-            use_pallas,
         )
         if lvl > 0:
             guess = guess * 2.0
@@ -270,7 +252,7 @@ def _lk_forward(prev_pyr, next_pyr, xy, patch: int, iters: int,
 
 @partial(
     jax.jit,
-    static_argnames=("levels", "patch", "iters", "fb_check", "use_pallas"),
+    static_argnames=("levels", "patch", "iters", "fb_check"),
 )
 def lk_track(
     img_prev: jax.Array,
@@ -286,7 +268,6 @@ def lk_track(
     fb_check: bool = True,
     fb_tol: float = 1.0,
     border: float = 2.0,
-    use_pallas: bool = False,
 ) -> FlowResult:
     """Track keypoints from ``img_prev`` to ``img_next``.
 
@@ -304,8 +285,6 @@ def lk_track(
         fraction of the template's own contrast (std) — contrast-invariant.
       fb_check: also track next->prev and reject round-trips > ``fb_tol`` px.
       border: reject tracks within this many pixels of the image edge.
-      use_pallas: batched-DMA window gathers (kernels/window_pallas.py) —
-        bitwise-identical tracks, ~an order of magnitude faster on chip.
 
     Returns:
       FlowResult with the same capacity K.
@@ -315,9 +294,7 @@ def lk_track(
     prev_pyr = build_pyramid(img_prev, levels)
     next_pyr = build_pyramid(img_next, levels)
 
-    new_xy, eig, resid = _lk_forward(
-        prev_pyr, next_pyr, xy, patch, iters, use_pallas
-    )
+    new_xy, eig, resid = _lk_forward(prev_pyr, next_pyr, xy, patch, iters)
 
     h, w = img_next.shape
     ok = (
@@ -336,7 +313,7 @@ def lk_track(
         # runs a single full-resolution LK level with its window anchored
         # at xy — template from img_next at new_xy, searched in img_prev.
         # A correct forward track converges back to ~xy (round-trip error
-        # ~tenths of a px); a wrong lock either diverges inside the +-8 px
+        # ~tenths of a px); a wrong lock either diverges inside the +-_DISP px
         # window or clamps at its edge, failing fb_tol either way. This
         # replaces a full backward pyramid descent (4 levels x iters) at
         # identical rejection power on the oracle suite: initializing at
@@ -344,7 +321,7 @@ def lk_track(
         # actually round-trip, which is the definition of a good track;
         # symmetric non-convergence is caught by the residual gate.
         back_xy, _, _ = _lk_level(
-            next_pyr[0], prev_pyr[0], new_xy, xy, patch, iters, use_pallas
+            next_pyr[0], prev_pyr[0], new_xy, xy, patch, iters
         )
         ok = ok & (jnp.linalg.norm(back_xy - xy, axis=-1) < fb_tol)
 

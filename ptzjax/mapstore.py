@@ -1,6 +1,6 @@
 """Global map: keyframe registry + ray store, and the map<->BA bridge.
 
-TPU-native redesign of the reference's ``slam_system/scene_map.py`` /
+A static-shape redesign of the reference's ``slam_system/scene_map.py`` /
 ``key_frame.py`` (SURVEY.md §2 layer 4): instead of Python lists of KeyFrame
 objects, fixed-capacity padded arrays (a pytree) so that map maintenance,
 keyframe-overlap queries, and BA-problem assembly are all jittable with
@@ -127,9 +127,8 @@ def add_rays(
     ok = mask & (cand_rank < csf[-1])
     num_ok = ok.sum()
     # scatter-free (see ekf.claim_slots): rank->index via searchsorted over
-    # the cumsums, payload writes as row-gathers + masked selects. The old
-    # per-row scatters (rays/desc/valid/views/last_seen) were the largest
-    # single item in the tracking step's scatter bill on v5e.
+    # the cumsums, payload writes as row-gathers + masked selects instead
+    # of per-row scatters of rays/desc/valid/views/last_seen.
     ids = jnp.where(
         ok,
         jnp.searchsorted(
@@ -241,7 +240,7 @@ def merge_rays(
     may absorb others but are never merged away themselves — an EKF slot's
     id must stay live mid-track.
 
-    All-pairs (M, M) work — MXU matmul for the descriptor Gram plus two
+    All-pairs (M, M) work — one matmul for the descriptor Gram plus two
     broadcast subtractions — so it belongs in a rare branch (keyframe
     insertion), not the per-frame path.
     """

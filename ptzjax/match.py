@@ -1,9 +1,8 @@
-"""Descriptor matching — jax reference path (the Pallas kernel in
-``ptzjax.kernels.match`` is the fast path; this module defines semantics).
+"""Descriptor matching.
 
-TPU-native analogue of the reference's BF matcher + Lowe ratio test + mutual
+The on-device analogue of the reference's BF matcher + Lowe ratio test + mutual
 check (``slam_system/image_process.py`` — SURVEY.md §2 layer 3, §8.5). The
-score matrix D_q D_r^T is one MXU matmul; top-2/ratio/mutual are row/col
+score matrix D_q D_r^T is one matmul; top-2/ratio/mutual are row/col
 reductions. Everything is padded + masked, no dynamic shapes.
 
 Descriptors are unit-norm, so squared L2 distance = 2 - 2 * cosine and the
@@ -47,8 +46,8 @@ def _masked_scores(
 
 def _top2(s: jax.Array) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Row-wise (best idx, best val, second val). Scatter-free: the best
-    entry is knocked out with a one-hot compare+select (a per-row scatter
-    serializes on TPU)."""
+    entry is knocked out with a one-hot compare+select, not a per-row
+    scatter."""
     i1 = jnp.argmax(s, axis=1).astype(jnp.int32)
     v1 = jnp.take_along_axis(s, i1[:, None], axis=1)[:, 0]
     cols = jnp.arange(s.shape[1], dtype=jnp.int32)
@@ -103,7 +102,7 @@ def match_gated(
     entries whose predicted pixel position is within gate_px. This is the
     tracking-mode matcher (the reference uses KLT optical flow for this role
     — SURVEY.md §8.5 chooses descriptor re-match + gating instead, which is
-    one MXU matmul rather than an image-pyramid scan).
+    one matmul rather than an image-pyramid scan).
     """
     s = _masked_scores(d_query, d_ref, q_valid, r_valid)
     d2 = jnp.sum(
@@ -135,7 +134,7 @@ def ransac_pan_tilt(
 ) -> jax.Array:
     """Pan-tilt-consistency outlier rejection for 2D<->ray matches.
 
-    TPU-shaped replacement for the reference's RANSAC match filter
+    A static-shape replacement for the reference's RANSAC match filter
     (``slam_system/image_process.py`` ``run_ransac`` — SURVEY.md §2 layer 3,
     §8.5): a homography is overkill for a rotating camera, since ONE
     correspondence determines (pan, tilt) given the focal length. Every
@@ -190,7 +189,7 @@ def consensus_pan_tilt(
     """Exhaustive pan-tilt consensus: EVERY candidate match votes.
 
     Deterministic, sampling-free variant of ``ransac_pan_tilt`` for the
-    per-frame tracking pre-gate (VERDICT r3 item 3): with Q <= 256 the full
+    per-frame tracking pre-gate: with Q <= 256 the full
     (Q, Q) hypothesis-vs-match table is one cheap batched computation, so
     there is no reason to subsample hypotheses (a fixed-key subsample
     collapses onto few distinct votes when the ok-density is low).
@@ -199,7 +198,7 @@ def consensus_pan_tilt(
     top-``max_hypotheses`` matches by ``score`` (deterministic top-k, ok
     rows first) while every match still gets scored as an inlier — the
     (Q, Q) transcendental table at Q = 512 was 4x the 256-row cost for no
-    accuracy gain (VERDICT r4 item 2): only ONE good static hypothesis is
+    accuracy gain: only ONE good static hypothesis is
     needed, and the statics dominate any trackable frame, so the best
     static vote survives any top-256 cut. Scoreless calls fall back to
     ok-ordering (still deterministic).
@@ -278,8 +277,8 @@ def consensus_pan_tilt(
     b1 = jnp.sum(w * bx)
     b2 = jnp.sum(w * by)
     b3 = jnp.sum(w * (btx * bx + bty * by))
-    # closed-form 3x3 solve (jnp.linalg.solve lowers to an LU while-loop on
-    # TPU — measurable per-frame latency for a single tiny system). The
+    # closed-form 3x3 solve (no LU factorization call for one tiny
+    # system). The
     # system is [[a11,0,a13],[0,a22,a23],[a13,a23,a33]] + 1e-6 I.
     a11 = a11 + 1e-6
     a22 = a22 + 1e-6
@@ -325,11 +324,10 @@ def scatter_to_slots(
       (obs (N,2), obs_mask (N,)) for ekf.update.
 
     Scatter-free: matches are unique per slot (mutual-best check), so the
-    slot table is a one-hot (N, Q) compare + a row gather — TPU scatters
-    serialize per row; gathers are a single vector pass. (A bf16 MXU
-    matmul with the one-hot would quantize x in [1024, 1280) by up to
-    ~4 px — ulp(bf16)=8 there — vs sigma_obs = 1 px, so the exact gather
-    is required, not just faster.)
+    slot table is a one-hot (N, Q) compare + a row gather. (A one-hot
+    matmul would be no substitute: at TF32 on the H100 it would quantize
+    x in [1024, 1280) by up to 0.5 px — ulp = 1 there — against
+    sigma_obs = 1 px, so the exact gather is required.)
     """
     tgt = jnp.where(result.ok, result.idx, num_slots)
     onehot = tgt[None, :] == jnp.arange(num_slots, dtype=jnp.int32)[:, None]

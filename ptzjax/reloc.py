@@ -1,12 +1,12 @@
 """Relocalization: recover (pan, tilt, focal) when tracking is lost.
 
-TPU-native redesign of the reference's keyframe relocalization
+A static-shape redesign of the reference's keyframe relocalization
 (``slam_system/relocalization.py`` — SURVEY.md §2 layer 6, §4.4): match the
-lost frame's descriptors against the global ray store (one MXU matmul —
+lost frame's descriptors against the global ray store (one matmul —
 covering all keyframes at once, where the reference loops keyframes), then
 solve the 3-DoF pose from 2D<->ray correspondences.
 
-The nonlinear solve needs an initialization; we use a TPU-shaped hypothesis
+The nonlinear solve needs an initialization; we use a batched hypothesis
 sweep instead of sequential RANSAC (SURVEY.md §8.5): for each candidate focal
 length on a log grid, every correspondence votes a (pan, tilt) directly
 (closed form below); the densest vote wins, inliers are scored batched, and a
@@ -184,7 +184,7 @@ def relocalize_keyframes(
 
     The reference loops keyframes and BF-matches sequentially; here the lost
     frame's descriptors are matched against ALL keyframe feature tables in
-    one MXU matmul (Q x K*F scores). A per-keyframe match-count vote picks
+    one matmul (Q x K*F scores). A per-keyframe match-count vote picks
     the nearest keyframe, the winner's 2D<->ray correspondences drive the
     same vote+refine pose solve, and the pose is seeded from the winning
     keyframe's stored pose (skipping the blind focal-grid sweep).

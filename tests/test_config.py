@@ -1,5 +1,5 @@
 """Config-surface behavior: JSON round-trip, retired-key handling, and
-AUTO descriptor_f_ref resolution at the library boundary (ADVICE r3)."""
+AUTO descriptor_f_ref resolution at the library boundary."""
 
 import json
 import warnings

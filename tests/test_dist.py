@@ -74,7 +74,7 @@ def test_padding_to_shard_multiple():
 
 
 def test_two_axis_host_chip_mesh(problem):
-    """("host", "chip") 2-axis mesh (SURVEY.md §5, DCN x ICI layout): the
+    """("host", "chip") 2-axis mesh (SURVEY.md §5, multi-host layout): the
     psum reduces over both axes and must match the 1-axis result."""
     prob, intr, _, _, _ = problem
     cfg = SLAMConfig(ba_iters=15)
@@ -124,8 +124,7 @@ def test_sharded_frontend_invariance(rendered_frames):
     focals = cams[:, 2]
     ref = [
         extract_features(
-            jnp.asarray(imgs[k]), cfg, use_pallas=False,
-            focal=jnp.asarray(focals[k]),
+            jnp.asarray(imgs[k]), cfg, focal=jnp.asarray(focals[k]),
         )
         for k in range(len(imgs))
     ]

@@ -5,6 +5,7 @@ must recover the trajectory within bounds."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from ptzjax import ekf, synth
 from ptzjax.config import SLAMConfig
@@ -253,3 +254,13 @@ def test_structured_update_matches_dense_oracle():
     np.testing.assert_allclose(
         np.asarray(new.cov), cov_ref, rtol=2e-3, atol=2e-4
     )
+
+
+@pytest.mark.parametrize("n", [32, 256])
+def test_update_matches_fp64_dense_oracle(n):
+    """eval.ekf_update_oracle_errors (the on-device check of chip_smoke.py
+    phase c and the bench's parity group) holds on the CPU in fp32."""
+    from ptzjax.eval import ekf_update_oracle_errors
+
+    cam_err, cov_err = ekf_update_oracle_errors(n=n)
+    assert cam_err < 5e-3 and cov_err < 5e-3, (cam_err, cov_err)

@@ -54,7 +54,7 @@ def test_pure_translation_subpixel():
     img0 = sample(x + 100.0, y + 100.0)
     img1 = sample(x + 100.0 + dx, y + 100.0 + dy)
 
-    kp = detect_keypoints(img0, max_keypoints=64, threshold=1e-4, use_pallas=False)
+    kp = detect_keypoints(img0, max_keypoints=64, threshold=1e-4)
     res = lk_track(img0, img1, kp.xy, kp.valid)
     tracked = np.asarray(res.tracked) & np.asarray(kp.valid)
     assert tracked.sum() >= 30
@@ -79,7 +79,7 @@ def test_ptz_motion_tracking_matches_geometry():
     geometric correspondence (back-project through cam0, project through
     cam1) — the end-to-end contract the SLAM loop needs from a KLT mode."""
     img0, img1, cam0, cam1, intr = _render_pair()
-    kp = detect_keypoints(img0, max_keypoints=128, threshold=1e-4, use_pallas=False)
+    kp = detect_keypoints(img0, max_keypoints=128, threshold=1e-4)
     res = lk_track(img0, img1, kp.xy, kp.valid)
 
     rays = back_project_pixels(cam0, kp.xy, intr)
@@ -137,36 +137,3 @@ def test_flat_region_rejected_by_texturedness():
     res = lk_track(img0, img1, xy, np.array([True]))
     assert not bool(np.asarray(res.tracked)[0])
 
-
-def test_lk_pallas_gather_bitwise_matches_jax():
-    """use_pallas=True routes the window gathers through the batched-DMA
-    kernel; tracks must be BITWISE identical to the XLA gather path."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from ptzjax import synth
-    from ptzjax.geometry import Intrinsics
-    from ptzjax.kernels.flow import lk_track
-
-    pano = synth.make_panorama(
-        theta_range=(-0.5, 0.5), phi_range=(-0.3, 0.18),
-        texels_per_rad=1800.0, seed=9,
-    )
-    intr = Intrinsics.create(320.0, 180.0)
-    cam0 = np.array([0.02, -0.04, 900.0], np.float32)
-    cam1 = cam0 + np.array([0.004, -0.001, 3.0], np.float32)
-    img0 = jnp.asarray(synth.render_image(pano, cam0, intr, 640, 360))
-    img1 = jnp.asarray(synth.render_image(pano, cam1, intr, 640, 360))
-    rng = np.random.default_rng(0)
-    xy = jnp.asarray(
-        np.stack([rng.uniform(20, 620, 96), rng.uniform(20, 340, 96)], -1),
-        jnp.float32,
-    )
-    valid = jnp.ones((96,), bool)
-    a = lk_track(img0, img1, xy, valid)
-    b = lk_track(img0, img1, xy, valid, use_pallas=True)
-    assert int(a.tracked.sum()) > 48
-    np.testing.assert_array_equal(np.asarray(a.xy), np.asarray(b.xy))
-    np.testing.assert_array_equal(
-        np.asarray(a.tracked), np.asarray(b.tracked)
-    )

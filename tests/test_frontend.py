@@ -53,10 +53,10 @@ class TestVisionGeometryConsistency:
         from ptzjax.match import match_descriptors
 
         xy0, d0, v0 = extract_features(
-            jnp.asarray(imgs[0]), cfg, use_pallas=False
+            jnp.asarray(imgs[0]), cfg
         )
         xy1, d1, v1 = extract_features(
-            jnp.asarray(imgs[1]), cfg, use_pallas=False
+            jnp.asarray(imgs[1]), cfg
         )
         m = match_descriptors(d1, d0, v1, v0, ratio=0.8)
         ok = np.asarray(m.ok)
@@ -85,12 +85,12 @@ class TestKLTFrontend:
         # period into ~10 frames -> 86 px/frame, beyond any KLT's basin
         imgs, cams, intr = _render(6, pan_amp=0.02, f_amp=8.0, seed=4)
         cfg = _cfg()
-        xy, desc, valid = extract_features(jnp.asarray(imgs[0]), cfg, use_pallas=False)
+        xy, desc, valid = extract_features(jnp.asarray(imgs[0]), cfg)
         prev_xy = np.asarray(xy)
         for k in range(1, 6):
             xy, desc, valid, tracked = track_features(
                 jnp.asarray(imgs[k - 1]), jnp.asarray(imgs[k]),
-                xy, valid, cfg, use_pallas=False,
+                xy, valid, cfg,
             )
             tr = np.asarray(tracked)
             va = np.asarray(valid)
@@ -114,13 +114,13 @@ class TestKLTFrontend:
         cfg = _cfg()
         slam = PTZSlam(cfg, intr)
 
-        xy, desc, valid = extract_features(jnp.asarray(imgs[0]), cfg, use_pallas=False)
+        xy, desc, valid = extract_features(jnp.asarray(imgs[0]), cfg)
         state = slam.init(xy, desc, valid, cams[0])
         seq = []
         for k in range(1, frames):
             xy, desc, valid, _ = track_features(
                 jnp.asarray(imgs[k - 1]), jnp.asarray(imgs[k]),
-                xy, valid, cfg, use_pallas=False,
+                xy, valid, cfg,
             )
             seq.append((xy, desc, valid))
         state, infos = slam.run_segment(
@@ -146,7 +146,7 @@ class TestFromPixelsSLAM:
         slam = PTZSlam(cfg, intr)
 
         feats = [
-            extract_features(jnp.asarray(im), cfg, use_pallas=False)
+            extract_features(jnp.asarray(im), cfg)
             for im in imgs
         ]
         state = slam.init(*feats[0], cams[0])
@@ -175,10 +175,10 @@ class TestFusedFromPixels:
         imgs, cams, intr = _render(frames, seed=1)
         cfg = _cfg()
         slam = PTZSlam(cfg, intr)
-        f0 = extract_features(jnp.asarray(imgs[0]), cfg, use_pallas=False)
+        f0 = extract_features(jnp.asarray(imgs[0]), cfg)
         state = slam.init(*f0, cams[0])
         state, infos = slam.run_segment_pixels(
-            state, jnp.asarray(imgs[1:]), use_pallas=False
+            state, jnp.asarray(imgs[1:])
         )
         lost = np.asarray(infos.lost)
         assert not lost.any(), f"lost at {np.nonzero(lost)[0]}"
@@ -192,12 +192,11 @@ class TestFusedFromPixels:
         cfg = _cfg()
         slam = PTZSlam(cfg, intr)
         xy, desc, valid = extract_features(
-            jnp.asarray(imgs[0]), cfg, use_pallas=False
+            jnp.asarray(imgs[0]), cfg
         )
         state = slam.init(xy, desc, valid, cams[0])
         state, infos, xy_t, valid_t = slam.run_segment_pixels_klt(
             state, jnp.asarray(imgs[1:]), jnp.asarray(imgs[0]), xy, valid,
-            use_pallas=False,
         )
         assert xy_t.shape == xy.shape and valid_t.shape == valid.shape
         lost = np.asarray(infos.lost)

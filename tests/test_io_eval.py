@@ -185,7 +185,7 @@ class TestRansacPanTilt:
 
 
 class TestAnnotationNegativePaths:
-    """Malformed-annotation handling (VERDICT r2 weak #7): the .mat/.npz
+    """Malformed-annotation handling: the .mat/.npz
     probe must fail LOUDLY with a diagnostic, never track garbage."""
 
     def _savemat(self, tmp_path, name, **kw):

@@ -1,21 +1,20 @@
-"""Vision kernel tests: Harris detect, descriptors, fused Pallas matcher.
+"""Vision kernel tests: Harris detect, window gathers, descriptors, matcher.
 
-Strategy per SURVEY.md §6: NumPy oracles for the response math, jax
-reference vs Pallas parity (interpret mode on the CPU test backend), and
-behavioral tests (known corners detected, shifted images re-matched).
+Strategy per SURVEY.md §6: NumPy oracles for the response math, the window
+gathers and the matcher, plus behavioral tests (known corners detected,
+shifted images re-matched).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from ptzjax import match as matchlib
+from ptzjax.kernels import descriptor as desclib
 from ptzjax.kernels import detect as detlib
+from ptzjax.kernels import flow as flowlib
 from ptzjax.kernels.descriptor import describe_keypoints
 from ptzjax.kernels.detect import detect_keypoints, harris_response
-from ptzjax.kernels.detect_pallas import harris_nms_pallas
-from ptzjax.kernels.match import match_pallas
 from tests.oracle.harris_np import harris_np, nms3_np
 
 
@@ -48,20 +47,14 @@ class TestHarris:
         want = harris_np(img)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)
 
-    def test_pallas_matches_jax_interior(self):
-        img = _texture(h=100, w=200, seed=3)
-        resp_j = np.asarray(harris_response(jnp.asarray(img)))
-        sup_j = np.asarray(detlib._nms3(jnp.asarray(resp_j)))
-        resp_p, sup_p = harris_nms_pallas(jnp.asarray(img))
-        b = 8  # border: edge-padding order differs within 4 px (documented)
-        np.testing.assert_allclose(
-            np.asarray(resp_p)[b:-b, b:-b], resp_j[b:-b, b:-b],
-            rtol=1e-4, atol=1e-7,
-        )
-        # NMS keep/suppress decisions must agree exactly in the interior
-        keep_j = sup_j[b:-b, b:-b] > -1e29
-        keep_p = np.asarray(sup_p)[b:-b, b:-b] > -1e29
-        np.testing.assert_array_equal(keep_p, keep_j)
+    @pytest.mark.parametrize("seed", [3, 11])
+    def test_nms_keep_set_matches_numpy_oracle(self, seed):
+        """Harris + 3x3 NMS keeps exactly the pixels the NumPy oracle keeps
+        (strict max over the top-left neighbours, >= over the rest)."""
+        img = _texture(h=100, w=200, seed=seed)
+        sup = np.asarray(detlib._nms3(harris_response(jnp.asarray(img))))
+        want = nms3_np(harris_np(img).astype(np.float32))
+        np.testing.assert_array_equal(sup > -1e29, want > -1e29)
 
     def test_detect_finds_known_corners(self):
         img, corners = _corner_image()
@@ -73,16 +66,6 @@ class TestHarris:
             d = np.hypot(xy[:, 0] - (cx - 0.5), xy[:, 1] - (cy - 0.5))
             assert d.min() < 1.5, (cx, cy, d.min())
 
-    def test_detect_pallas_path_matches_jax_path(self):
-        img = _texture(h=128, w=256, seed=5)
-        a = detect_keypoints(jnp.asarray(img), 128, use_pallas=False)
-        b = detect_keypoints(jnp.asarray(img), 128, use_pallas=True)
-        na, nb = int(a.valid.sum()), int(b.valid.sum())
-        assert na == nb
-        np.testing.assert_allclose(
-            np.asarray(a.xy)[:na], np.asarray(b.xy)[:nb], atol=1e-3
-        )
-
     def test_mask_suppresses_detections(self):
         img, _ = _corner_image()
         mask = np.ones(img.shape, bool)
@@ -92,12 +75,21 @@ class TestHarris:
         assert (xy[:, 0] >= img.shape[1] // 2 - 1).all()
 
 
+def _blend_np(win_img, fy, fx, win):
+    return (
+        win_img[:win, :win] * (1 - fy) * (1 - fx)
+        + win_img[:win, 1 : win + 1] * (1 - fy) * fx
+        + win_img[1 : win + 1, :win] * fy * (1 - fx)
+        + win_img[1 : win + 1, 1 : win + 1] * fy * fx
+    )
+
+
 class TestWindowGather:
-    def test_pallas_descriptors_bitwise_match_jax(self):
-        """The batched-DMA window gather (kernels/window_pallas.py) must
-        produce BITWISE-identical descriptors to the XLA gather path, for
-        both the fixed and the zoom-normalized (traced scale) variants,
-        including keypoints at subpixel positions and near borders."""
+    @pytest.mark.parametrize("win", [desclib.PATCH + 2, desclib.SCALED_WIN])
+    def test_extract_aligned_matches_numpy(self, win):
+        """Descriptor windows (both the fixed and the zoom-normalized size)
+        equal NumPy slicing of the edge-padded image plus the bilinear
+        blend, for subpixel keypoints and keypoints on the border."""
         img = _texture(h=120, w=200, seed=7)
         rng = np.random.default_rng(7)
         xy = np.stack(
@@ -105,36 +97,43 @@ class TestWindowGather:
         ).astype(np.float32)
         xy[0] = [0.2, 0.3]          # extreme corner
         xy[1] = [198.9, 118.7]
-        valid = np.ones((37,), bool)
-        valid[-2:] = False
-        for scale in (None, jnp.asarray(1.37)):
-            d_jax = describe_keypoints(
-                jnp.asarray(img), jnp.asarray(xy), jnp.asarray(valid),
-                scale=scale,
-            )
-            d_pal = describe_keypoints(
-                jnp.asarray(img), jnp.asarray(xy), jnp.asarray(valid),
-                scale=scale, use_pallas=True,
-            )
-            np.testing.assert_array_equal(
-                np.asarray(d_jax), np.asarray(d_pal)
+        xy[2] = [-3.0, 60.0]        # outside: window clamps to the pad
+        got = np.asarray(
+            desclib._extract_aligned(jnp.asarray(img), jnp.asarray(xy), win)
+        )
+        h, w = img.shape
+        half, pad = win // 2, win // 2 + 1
+        pimg = np.pad(img, pad, mode="edge")
+        for k, (x, y) in enumerate(xy):
+            y0, x0 = int(np.floor(y + 0.5)), int(np.floor(x + 0.5))
+            fy = np.clip(y + 0.5 - y0, 0.0, 1.0)
+            fx = np.clip(x + 0.5 - x0, 0.0, 1.0)
+            ys = np.clip(y0 - half + pad, 0, h + 2 * pad - win - 1)
+            xs = np.clip(x0 - half + pad, 0, w + 2 * pad - win - 1)
+            patch = pimg[ys : ys + win + 1, xs : xs + win + 1]
+            np.testing.assert_allclose(
+                got[k], _blend_np(patch, fy, fx, win), rtol=1e-6, atol=1e-6
             )
 
-    def test_gather_windows_raw_values(self):
-        from ptzjax.kernels.window_pallas import gather_windows_pallas
-
+    @pytest.mark.parametrize("size", [14, 25])
+    def test_flow_gather_matches_numpy_slicing(self, size):
+        """LK's integer window gather is exact slicing, including windows
+        that start on the first and end on the last row/column."""
         rng = np.random.default_rng(3)
         img = rng.normal(size=(77, 183)).astype(np.float32)
-        win = 18
-        ys = rng.integers(0, 77 - win - 1, 21).astype(np.int32)
-        xs = rng.integers(0, 183 - win - 1, 21).astype(np.int32)
-        out = gather_windows_pallas(
-            jnp.asarray(img), jnp.asarray(ys), jnp.asarray(xs), win
+        ys = rng.integers(0, 77 - size + 1, 21).astype(np.int32)
+        xs = rng.integers(0, 183 - size + 1, 21).astype(np.int32)
+        ys[:2] = [0, 77 - size]
+        xs[:2] = [183 - size, 0]
+        out = np.asarray(
+            flowlib._gather(
+                jnp.asarray(img), jnp.asarray(ys), jnp.asarray(xs), size
+            )
         )
+        assert out.shape == (21, size, size)
         for k in range(21):
             np.testing.assert_array_equal(
-                np.asarray(out)[k, : win + 1, : win + 1],
-                img[ys[k] : ys[k] + win + 1, xs[k] : xs[k] + win + 1],
+                out[k], img[ys[k] : ys[k] + size, xs[k] : xs[k] + size]
             )
 
 
@@ -175,53 +174,83 @@ class TestDescriptor:
         assert off.max() < 0.98  # no two distinct patches collapse
 
 
-class TestMatchPallas:
-    def _data(self, q=70, r=150, dim=64, seed=0):
-        rng = np.random.default_rng(seed)
-        dr = rng.normal(size=(r, dim)).astype(np.float32)
-        dr /= np.linalg.norm(dr, axis=-1, keepdims=True)
-        perm = rng.permutation(r)[:q]
-        dq = dr[perm] + 0.1 * rng.normal(size=(q, dim)).astype(np.float32)
-        dq /= np.linalg.norm(dq, axis=-1, keepdims=True)
-        qv = rng.random(q) > 0.1
-        rv = rng.random(r) > 0.1
-        return (
-            jnp.asarray(dq), jnp.asarray(dr),
-            jnp.asarray(qv), jnp.asarray(rv), perm,
-        )
+def _match_np(dq, dr, qv, rv, ratio, mutual, min_score, gate=None):
+    """Brute-force NumPy matcher: the semantics ptzjax.match implements,
+    one query row at a time (fp64 scores)."""
+    s = dq.astype(np.float64) @ dr.astype(np.float64).T
+    allowed = qv[:, None] & rv[None, :]
+    if gate is not None:
+        allowed &= gate
+    s = np.where(allowed, s, -np.inf)
+    q = s.shape[0]
+    idx = np.zeros(q, np.int64)
+    ok = np.zeros(q, bool)
+    for i in range(q):
+        row = s[i]
+        if not qv[i] or not np.isfinite(row).any():
+            continue
+        order = np.argsort(-row, kind="stable")
+        b, v1 = order[0], row[order[0]]
+        v2 = row[order[1]] if len(order) > 1 else -np.inf
+        good = v1 > min_score
+        if np.isfinite(v2):  # the ratio test needs a second candidate
+            good &= max(1.0 - v1, 0.0) < ratio * ratio * max(1.0 - v2, 1e-12)
+        if mutual:
+            good &= int(np.argmax(s[:, b])) == i
+        ok[i], idx[i] = good, b if good else 0
+    return idx, ok
 
-    def test_parity_with_jax_reference(self):
-        dq, dr, qv, rv, _ = self._data()
-        ref = matchlib.match_descriptors(dq, dr, qv, rv, ratio=0.8)
-        got = match_pallas(dq, dr, qv, rv, ratio=0.8)
-        np.testing.assert_array_equal(np.asarray(ref.ok), np.asarray(got.ok))
-        np.testing.assert_array_equal(
-            np.asarray(ref.idx), np.asarray(got.idx)
-        )
-        np.testing.assert_allclose(
-            np.asarray(ref.score), np.asarray(got.score), atol=1e-5
-        )
 
-    def test_parity_gated(self):
-        dq, dr, qv, rv, perm = self._data(seed=2)
+def _match_data(q=70, r=150, dim=64, seed=0):
+    rng = np.random.default_rng(seed)
+    dr = rng.normal(size=(r, dim)).astype(np.float32)
+    dr /= np.linalg.norm(dr, axis=-1, keepdims=True)
+    perm = rng.permutation(r)[:q]
+    dq = dr[perm] + 0.1 * rng.normal(size=(q, dim)).astype(np.float32)
+    dq /= np.linalg.norm(dq, axis=-1, keepdims=True)
+    qv = rng.random(q) > 0.1
+    rv = rng.random(r) > 0.1
+    return dq, dr, qv, rv, perm
+
+
+class TestMatch:
+    @pytest.mark.parametrize(
+        "ratio,mutual,seed", [(0.8, True, 0), (0.9, False, 1), (0.6, True, 4)]
+    )
+    def test_match_descriptors_matches_numpy_oracle(self, ratio, mutual, seed):
+        dq, dr, qv, rv, _ = _match_data(seed=seed)
+        got = matchlib.match_descriptors(
+            jnp.asarray(dq), jnp.asarray(dr), jnp.asarray(qv),
+            jnp.asarray(rv), ratio=ratio, mutual=mutual,
+        )
+        idx, ok = _match_np(dq, dr, qv, rv, ratio, mutual, 0.5)
+        np.testing.assert_array_equal(np.asarray(got.ok), ok)
+        np.testing.assert_array_equal(np.asarray(got.idx), idx)
+
+    @pytest.mark.parametrize("gate_px", [10.0, 30.0])
+    def test_match_gated_matches_numpy_oracle(self, gate_px):
+        dq, dr, qv, rv, perm = _match_data(seed=2)
         rng = np.random.default_rng(3)
-        xr = jnp.asarray(rng.uniform(0, 500, (dr.shape[0], 2)).astype(np.float32))
-        xq = xr[perm] + jnp.asarray(
-            rng.normal(0, 5, (dq.shape[0], 2)).astype(np.float32)
+        xr = rng.uniform(0, 500, (dr.shape[0], 2)).astype(np.float32)
+        xq = xr[perm] + rng.normal(0, 5, (dq.shape[0], 2)).astype(np.float32)
+        got = matchlib.match_gated(
+            jnp.asarray(dq), jnp.asarray(xq), jnp.asarray(dr),
+            jnp.asarray(xr), jnp.asarray(qv), jnp.asarray(rv),
+            gate_px=gate_px, ratio=0.9,
         )
-        ref = matchlib.match_gated(
-            dq, xq, dr, xr, qv, rv, gate_px=30.0, ratio=0.9
+        d2 = ((xq[:, None, :] - xr[None, :, :]) ** 2).sum(-1)
+        idx, ok = _match_np(
+            dq, dr, qv, rv, 0.9, True, 0.5, gate=d2 <= gate_px**2
         )
-        got = match_pallas(
-            dq, dr, qv, rv, xy_query=xq, xy_ref_pred=xr,
-            gate_px=30.0, ratio=0.9,
-        )
-        np.testing.assert_array_equal(np.asarray(ref.ok), np.asarray(got.ok))
-        np.testing.assert_array_equal(np.asarray(ref.idx), np.asarray(got.idx))
+        np.testing.assert_array_equal(np.asarray(got.ok), ok)
+        np.testing.assert_array_equal(np.asarray(got.idx), idx)
 
     def test_recovers_planted_correspondence(self):
-        dq, dr, qv, rv, perm = self._data(q=50, r=120, seed=5)
-        got = match_pallas(dq, dr, qv, rv, ratio=0.85)
+        dq, dr, qv, rv, perm = _match_data(q=50, r=120, seed=5)
+        got = matchlib.match_descriptors(
+            jnp.asarray(dq), jnp.asarray(dr), jnp.asarray(qv),
+            jnp.asarray(rv), ratio=0.85,
+        )
         ok = np.asarray(got.ok)
         idx = np.asarray(got.idx)
         hits = (idx[ok] == perm[ok]).mean()
@@ -239,7 +268,7 @@ class TestEndToEndFeatures:
         kp1 = detect_keypoints(jnp.asarray(img1), 96)
         d0 = describe_keypoints(jnp.asarray(img0), kp0.xy, kp0.valid)
         d1 = describe_keypoints(jnp.asarray(img1), kp1.xy, kp1.valid)
-        m = match_pallas(d1, d0, kp1.valid, kp0.valid, ratio=0.8)
+        m = matchlib.match_descriptors(d1, d0, kp1.valid, kp0.valid, ratio=0.8)
         ok = np.asarray(m.ok)
         assert ok.sum() >= 20, ok.sum()
         dx = np.asarray(kp1.xy)[ok, 0] - np.asarray(kp0.xy)[np.asarray(m.idx)[ok], 0]
@@ -249,31 +278,6 @@ class TestEndToEndFeatures:
 
 
 class TestCholeskySolve:
-    def test_cholesky_pallas_interpret(self):
-        """The experimental Pallas panel Cholesky is exact in interpret
-        mode (the real-hardware path is blocked on a Mosaic miscompile —
-        see kernels/cholesky_pallas.py docstring)."""
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        import ptzjax.kernels.cholesky_pallas as cp
-
-        rng = np.random.default_rng(0)
-        for n in (64, 128):
-            a = rng.normal(size=(n, n)).astype(np.float32)
-            s = jnp.asarray(a @ a.T + n * np.eye(n, dtype=np.float32))
-            u = pl.pallas_call(
-                cp._chol_kernel,
-                out_shape=jax.ShapeDtypeStruct((n, n), jnp.float32),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-                scratch_shapes=[pltpu.VMEM((n, n), jnp.float32)],
-                interpret=True,
-            )(s)
-            l = np.asarray(u).T
-            err = np.abs(l @ l.T - np.asarray(s)).max() / np.abs(s).max()
-            assert err < 1e-5, (n, err)
-
     def test_inv_lower_neumann_exact(self):
         """_inv_lower (production: ekf.update's solve) inverts lower-
         triangular factors to fp32 substitution accuracy, across the base
@@ -318,7 +322,7 @@ class TestCholeskySolve:
             assert np.abs(np.triu(il, 1)).max() == 0.0, n
 
     def test_inv_lower_ill_conditioned_gain(self):
-        """ADVICE r4: _inv_lower's explicit inverse has forward error
+        """_inv_lower's explicit inverse has forward error
         growing with cond(L), unlike backward-stable substitution. Post-
         init/reloc S = H P H^T + R is ill-conditioned (large ray/velocity
         covariance on some slots, sigma_obs^2 floor on others). Build S

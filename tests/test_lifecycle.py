@@ -164,8 +164,8 @@ def test_keyframe_eviction_replaces_most_redundant():
 
 def test_long_pan_sweeps_never_exhaust_stores():
     """5 full-range pan sweeps over 1500 frames with a map store far too
-    small to hold every ray ever seen: the lifecycle must recycle rows
-    (VERDICT r1 item 4). Also drops frames late in the run to confirm
+    small to hold every ray ever seen: the lifecycle must recycle rows.
+    Also drops frames late in the run to confirm
     relocalization still works against the aged map."""
     # max_map_rays must cover the keyframes' own observational footprint
     # (8 keyframes x 96 features, ~60% distinct after sharing) plus the

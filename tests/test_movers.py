@@ -1,5 +1,5 @@
 """Correlated-outlier stress: moving textured blobs (player analogues)
-composited into the rendered video (VERDICT r3 item 3; SURVEY.md §1.1
+composited into the rendered video (SURVEY.md §1.1
 masking rationale). Unlike i.i.d. teleported outliers, blob features are
 spatially coherent and temporally persistent with consistent WRONG motion —
 the failure mode the reference's player-box masks exist for.
@@ -99,13 +99,11 @@ def _run(imgs, cams, intr, masks=None, **cfg_kw):
     cfg = _cfg().replace(**cfg_kw)
     slam = PTZSlam(cfg, intr)
     m0 = None if masks is None else jnp.asarray(masks[0])
-    f0 = extract_features(jnp.asarray(imgs[0]), cfg, mask=m0,
-                          use_pallas=False)
+    f0 = extract_features(jnp.asarray(imgs[0]), cfg, mask=m0)
     state = slam.init(*f0, cams[0])
     state, infos = slam.run_segment_pixels(
         state, jnp.asarray(imgs[1:]),
         masks=None if masks is None else jnp.asarray(masks[1:]),
-        use_pallas=False,
     )
     lost = np.asarray(infos.lost)
     pose = np.asarray(infos.pose)

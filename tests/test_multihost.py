@@ -1,7 +1,7 @@
-"""Two-process jax.distributed test (VERDICT r2 item 6).
+"""Two-process jax.distributed test.
 
 ``initialize_multihost`` (ptzjax/dist.py) was previously zero-coverage
-because real DCN is unavailable here. This exercises the REAL multi-process
+because the tests have no second host. This exercises the REAL multi-process
 path on localhost: two OS processes, gloo CPU collectives, a 2x2
 ("host", "chip") mesh spanning both processes, and the full sharded BA —
 asserting both processes converge to the single-process result.
@@ -12,8 +12,11 @@ import os
 import socket
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
+
+REPO = str(Path(__file__).resolve().parents[1])
 
 WORKER = r"""
 import os, sys
@@ -23,16 +26,16 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, sys.argv[3])
 from ptzjax import dist
 from ptzjax.config import SLAMConfig
-from benchmarks.bench_suite import _make_ba_problem
+from ptzjax.synth import make_ba_problem
 
 dist.initialize_multihost(f"127.0.0.1:{port}", 2, proc_id)
 assert jax.process_count() == 2
 assert len(jax.devices()) == 4 and len(jax.local_devices()) == 2
 
-prob, intr = _make_ba_problem(k=8, m=256, c=4)
+prob, intr = make_ba_problem(k=8, m=256, c=4)
 cfg = SLAMConfig(ba_iters=8)
 mesh = dist.make_mesh_2d(num_hosts=2, chips_per_host=2)
 res = dist.run_sharded(prob, intr, cfg, mesh)
@@ -60,9 +63,9 @@ def test_two_process_distributed_ba(tmp_path):
     env.pop("JAX_PLATFORMS", None)
     procs = [
         subprocess.Popen(
-            [sys.executable, "-c", WORKER, str(pid), str(port)],
+            [sys.executable, "-c", WORKER, str(pid), str(port), REPO],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            cwd="/root/repo", env=env,
+            cwd=REPO, env=env,
         )
         for pid in (0, 1)
     ]
@@ -84,11 +87,11 @@ def test_two_process_distributed_ba(tmp_path):
     assert results[0]["cost"] < 1e-2 * results[0]["initial_cost"]
 
     # and it matches the single-process run of the identical problem
-    from benchmarks.bench_suite import _make_ba_problem
+    from ptzjax.synth import make_ba_problem
     from ptzjax import ba
     from ptzjax.config import SLAMConfig
 
-    prob, intr = _make_ba_problem(k=8, m=256, c=4)
+    prob, intr = make_ba_problem(k=8, m=256, c=4)
     ref = ba.run(prob, intr, SLAMConfig(ba_iters=8))
     np.testing.assert_allclose(
         results[0]["cost"], float(ref.cost), rtol=1e-4

@@ -1,5 +1,5 @@
 """Keyframe-time (online) windowed BA — SURVEY.md §4.2 "keyframe check ...
-optionally trigger §4.3 BA", VERDICT r1 item 5.
+optionally trigger §4.3 BA".
 
 Note on scope: the joint camera x ray EKF (MonoSLAM-consistent insertion,
 map-guarded updates) shows no measurable drift on unbiased synthetic

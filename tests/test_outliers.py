@@ -1,4 +1,4 @@
-"""Outlier/dropout stress (VERDICT r2 item 8; SURVEY.md §6 item 2
+"""Outlier/dropout stress (SURVEY.md §6 item 2
 "+noise, outliers, dropouts"): the keyframe/BA path must stay healthy when
 a real fraction of observations are garbage — teleported matches in BA,
 and outlier keypoints feeding the full SLAM loop end-to-end."""
@@ -74,7 +74,7 @@ def _slam_outlier_run(
 ):
     """Full SLAM loop under noise/outlier pressure: tracking holds,
     keyframe association stays pure, and the final robust BA improves the
-    map (VERDICT r2 item 8; extended across sigma_obs per VERDICT r3 item 4
+    map, across sigma_obs
     — the association constants now live in SLAMConfig and must hold at
     sigma 1-3 px with the DEFAULT values, no retuning)."""
     cfg = SLAMConfig(
@@ -120,7 +120,7 @@ def _slam_outlier_run(
     # keyframe's associated map rays through the GT pose of that frame —
     # an aliasing match (keypoint linked to the wrong ray) shows up as a
     # large reprojection error in the keyframe table itself, upstream of
-    # BA (VERDICT r2 weak #6)
+    # BA
     from ptzjax.geometry import project_rays
 
     kf = jax.device_get(state.kf)
@@ -172,8 +172,8 @@ def test_slam_long_run_with_outliers_and_dropouts():
 
 def test_slam_outlier_purity_sigma2():
     """sigma_obs = 2 px + 20% outliers: the DEFAULT association constants
-    (track_ratio/kf_ratio/kf_gate) must hold without retuning (VERDICT r3
-    item 4). Tolerances scale with the noise floor (~2 px vs ~0.5 px)."""
+    (track_ratio/kf_ratio/kf_gate) must hold without retuning.
+    Tolerances scale with the noise floor (~2 px vs ~0.5 px)."""
     _slam_outlier_run(
         100, noise_px=2.0, sigma_obs=2.0, outlier_frac=0.20,
         max_lost=4, pan_tol=6e-3, purity_med=7.0, purity_tail_px=20.0,
@@ -183,7 +183,7 @@ def test_slam_outlier_purity_sigma2():
 
 def test_consensus_hypothesis_cap_matches_full():
     """Q = 512 > max_hypotheses: the top-256-by-score hypothesis cut
-    (VERDICT r4 item 2 association cost) must produce the same inlier set
+    (association cost) must produce the same inlier set
     as exhaustive hypotheses on a static-majority scene with a coherent
     wrong-motion (mover) cluster, and must reject the movers."""
     import jax.numpy as jnp

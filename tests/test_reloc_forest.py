@@ -120,7 +120,7 @@ class TestForestRelocalization:
 
 
 class TestAsyncTraining:
-    """Background (native-thread) training — VERDICT r3 item 6: keyframe-
+    """Background (native-thread) training: keyframe-
     time stalls bounded by the sample memcpy, not the tree rebuild."""
 
     def _data(self, n, dim=32, seed=11):

@@ -59,7 +59,7 @@ def test_detector_repeatability_vs_cv2():
 
     kp0 = detect_keypoints(jnp.asarray(img0), 256, threshold=0.01)
     kp1 = detect_keypoints(jnp.asarray(img1), 256, threshold=0.01)
-    rep_tpu = _repeatability(
+    rep_dev = _repeatability(
         kp0.xy, kp0.valid, kp1.xy, kp1.valid, cam0, cam1, intr
     )
 
@@ -75,9 +75,9 @@ def test_detector_repeatability_vs_cv2():
         cam0, cam1, intr,
     )
 
-    assert rep_tpu > 0.6, f"tpu detector repeatability {rep_tpu:.2f}"
+    assert rep_dev > 0.6, f"device detector repeatability {rep_dev:.2f}"
     # comparable: within a 0.75 factor of cv2's SIFT on the same pair
-    assert rep_tpu > 0.75 * rep_cv2, (rep_tpu, rep_cv2)
+    assert rep_dev > 0.75 * rep_cv2, (rep_dev, rep_cv2)
 
 
 def test_matcher_inlier_overlap_vs_cv2_bf():

@@ -4,6 +4,9 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
+
+REPO = str(Path(__file__).resolve().parents[1])
 
 
 def test_cli_synthetic_run(tmp_path):
@@ -14,7 +17,7 @@ def test_cli_synthetic_run(tmp_path):
             "--frames", "30", "--out", out, "--platform", "cpu",
             "--checkpoint-every", "10",
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -39,7 +42,7 @@ def test_cli_klt_images_run(tmp_path):
             "--frames", "12", "--out", out, "--platform", "cpu",
             "--width", "480", "--height", "270",
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -59,7 +62,7 @@ def test_cli_reloc_backends(tmp_path):
                 "--frames", "20", "--out", out, "--platform", "cpu",
                 "--reloc", mode,
             ],
-            capture_output=True, text=True, cwd="/root/repo",
+            capture_output=True, text=True, cwd=REPO,
             env={**os.environ, "JAX_PLATFORMS": "cpu"},
         )
         assert r.returncode == 0, r.stderr[-2000:]
@@ -78,7 +81,7 @@ def test_cli_plot_artifact(tmp_path):
             sys.executable, "-m", "ptzjax.run", "--synthetic",
             "--frames", "20", "--out", out, "--platform", "cpu", "--plot",
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -95,7 +98,7 @@ def test_cli_homography_baseline(tmp_path):
             "--frames", "30", "--out", out, "--platform", "cpu",
             "--tracker", "homography",
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -105,7 +108,7 @@ def test_cli_homography_baseline(tmp_path):
 
 
 def test_cli_fused_images_run(tmp_path):
-    """--synthetic-images with the tpu frontend runs the FUSED on-device
+    """--synthetic-images with the device frontend runs the FUSED on-device
     pipeline (frames -> features -> step inside one scan per chunk)."""
     out = str(tmp_path / "fused")
     r = subprocess.run(
@@ -114,12 +117,15 @@ def test_cli_fused_images_run(tmp_path):
             "--frames", "12", "--out", out, "--platform", "cpu",
             "--width", "480", "--height", "270", "--chunk", "8",
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
     summary = json.load(open(os.path.join(out, "summary.json")))
     assert summary["frontend"] == "fused"
+    # the device the numbers were taken on, beside them
+    assert summary["platform"] == "cpu" and summary["device_count"] >= 1
+    assert summary["device_kind"] and summary["compile_s"] > 0
     assert summary["frames_lost"] == 0
     assert summary["pan_mae_deg"] < 0.2
     lines = open(os.path.join(out, "frames.jsonl")).read().strip().splitlines()
@@ -127,7 +133,7 @@ def test_cli_fused_images_run(tmp_path):
 
 
 def test_cli_zoom_sweep_default_normalization(tmp_path):
-    """A ~2x focal sweep tracks with NO config file (VERDICT r2 item 4):
+    """A ~2x focal sweep tracks with NO config file:
     descriptor zoom normalization must be the DEFAULT product behavior
     (descriptor_f_ref auto-resolves to the init pose's focal)."""
     out = str(tmp_path / "zoom")
@@ -139,7 +145,7 @@ def test_cli_zoom_sweep_default_normalization(tmp_path):
             "--f0", "1300", "--f-amp", "430", "--period", "30",
             "--pan-amp", "0.05",
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -155,7 +161,7 @@ def test_cli_zoom_sweep_default_normalization(tmp_path):
 
 def test_cli_resume_from_checkpoint(tmp_path):
     """--resume continues a checkpointed run: the resumed half must pick up
-    at the right frame and stay accurate (VERDICT r1 item 6)."""
+    at the right frame and stay accurate."""
     out1 = str(tmp_path / "part1")
     r = subprocess.run(
         [
@@ -163,7 +169,7 @@ def test_cli_resume_from_checkpoint(tmp_path):
             "--frames", "40", "--out", out1, "--platform", "cpu",
             "--checkpoint-every", "20", "--seed", "3",
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -177,7 +183,7 @@ def test_cli_resume_from_checkpoint(tmp_path):
             "--frames", "40", "--out", out2, "--platform", "cpu",
             "--seed", "3", "--resume", ck,
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -193,7 +199,7 @@ def test_cli_resume_from_checkpoint(tmp_path):
 
 
 def test_cli_movers(tmp_path):
-    """--movers N (VERDICT r4 missing #4): the mover stress is a product
+    """--movers N: the mover stress is a product
     surface. Masked run must track cleanly and record mover metadata."""
     from ptzjax.config import SLAMConfig
 
@@ -213,7 +219,7 @@ def test_cli_movers(tmp_path):
             "--f0", "1100", "--f-amp", "60", "--pan-amp", "0.12",
             "--config", cfg_path, "--chunk", "10",
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -226,7 +232,7 @@ def test_cli_movers(tmp_path):
 
 
 def test_cli_offline_mode(tmp_path):
-    """--offline (VERDICT r3 item 5): sharded frontend over a virtual
+    """--offline: sharded frontend over a virtual
     8-device mesh -> tracking -> sharded robust BA, emitting the standard
     artifacts plus BA cost before/after."""
     out = str(tmp_path / "offline")
@@ -237,7 +243,7 @@ def test_cli_offline_mode(tmp_path):
             "--out", out, "--platform", "cpu",
             "--width", "480", "--height", "270", "--ba-huber", "3.0",
         ],
-        capture_output=True, text=True, cwd="/root/repo",
+        capture_output=True, text=True, cwd=REPO,
         env={
             **os.environ,
             "JAX_PLATFORMS": "cpu",
@@ -252,7 +258,7 @@ def test_cli_offline_mode(tmp_path):
     assert summary["pan_mae_deg"] < 0.05
     assert summary["ba_robust"] is True
     assert summary["ba_cost_after"] <= summary["ba_cost_before"]
-    # VERDICT r4 weak #3: the product offline path must NOT zoom-normalize
+    # The product offline path must NOT zoom-normalize
     # with per-frame GT focals — only the frame-0 anchor (same information
     # the online bootstrap consumes). The accuracy assertions above hold
     # WITHOUT the oracle, proving the leak removal costs nothing here.

@@ -1,4 +1,4 @@
-"""Zoom robustness (VERDICT r1 item 3; SURVEY.md §1.1/§8.5 — the reference's
+"""Zoom robustness (SURVEY.md §1.1/§8.5 — the reference's
 SIFT is scale-invariant because zoom changes feature scale). Our PTZ-specific
 answer: focal length is EKF state, so descriptors sample at f/f_ref spacing
 (no pyramid) and slot descriptors refresh on confirmed matches."""
@@ -54,7 +54,7 @@ def test_descriptor_match_survives_2x_zoom():
     cfg = _cfg()
 
     xy_a, d_a, v_a = extract_features(
-        img_a, cfg, use_pallas=False, focal=jnp.asarray(cam_a[2])
+        img_a, cfg, focal=jnp.asarray(cam_a[2])
     )
     # transfer frame-a keypoints into frame b through GT geometry; keep
     # those that land inside the zoomed view
@@ -101,15 +101,14 @@ def _run_zoom_sequence(cfg, frames, f0, f_amp, drop=(), seed=1,
     imgs = [synth.render_image(pano, c, intr, W, H) for c in cams]
     slam = PTZSlam(cfg, intr)
     feats0 = extract_features(
-        jnp.asarray(imgs[0]), cfg, use_pallas=False,
-        focal=jnp.asarray(cams[0][2]),
+        jnp.asarray(imgs[0]), cfg, focal=jnp.asarray(cams[0][2]),
     )
     state = slam.init(*feats0, cams[0])
     infos = []
     for k in range(1, frames):
         f_est = jnp.asarray(state.ekf.pose[2])
         xy, desc, valid = extract_features(
-            jnp.asarray(imgs[k]), cfg, use_pallas=False, focal=f_est
+            jnp.asarray(imgs[k]), cfg, focal=f_est
         )
         if k in drop:
             valid = jnp.zeros_like(valid)
